@@ -1,4 +1,4 @@
-"""Basic smoke demo — the TPU port of demos/src/basic.rs:11-50.
+"""Basic smoke demo — the JAX port of demos/src/basic.rs:11-50.
 
 Encode 128 random 64-d vectors with the scalar u8 quantizer and assert every
 quantized dot score is within dim*0.1 of the exact value, for both the

@@ -1,11 +1,9 @@
 """IVF serving demo: probe-limited coarse search + original-vector rescore.
 
-Round-3 measurements on one v5e chip (BASELINE.md "IVF probe-limited
-serving") put this configuration past every full-scan config at 10M x
-768: 2s IVF-SQ->f32 = 22-24k qps at recall@10 0.975-0.979 (vs 15.7k for
-the full-scan two-stage), and 146 us/query in the small-batch latency
-regime where a full scan is stuck at 403 (its corpus stream cannot
-shrink with the batch).
+On seeded 10M x 768 corpora, IVF-SQ -> f32 rescore reached recall@10
+0.975-0.979 while scanning a fraction of the corpus; in the small-batch
+latency regime a full scan cannot shrink its corpus stream with the
+batch, and a probe can. Its speed on this card is not measured yet.
 
 Build from public parts (clustered corpus so probing has structure to
 find — IVF on uniform noise degenerates to a full scan):
@@ -14,12 +12,11 @@ find — IVF on uniform noise degenerates to a full scan):
     TwoStageIndex(ivf, ExactRescorer(data, ...), oversampling=4)
     index.top_k(index.encode_query(q), 10)
 
-Geometry rules that make probing pay (all measured, PERF_NOTES /
-BASELINE.md): ``bucket_size`` should be well under the average cluster
-size (several buckets per cluster; a bucket bigger than its cluster is
-mostly padding), and wider buckets scan faster per byte — 2048-row
-buckets stream at dense-scan speed — so large corpora want big clusters
-AND big buckets. ``nscan`` must cover (distinct clusters in the batch)
+Geometry rules that make probing pay: ``bucket_size`` should be well
+under the average cluster size (several buckets per cluster; a bucket
+bigger than its cluster is mostly padding), and wider buckets gather in
+bigger contiguous blocks, so large corpora want big clusters AND big
+buckets. ``nscan`` must cover (distinct clusters in the batch)
 x (buckets per cluster), since a query's neighbors spread over its
 whole cluster; the scan fraction — IVF's whole advantage — comes from
 the corpus having many more clusters than the batch touches.

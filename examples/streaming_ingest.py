@@ -1,4 +1,4 @@
-"""Streaming single-pass ingestion at HBM-exceeding host scale.
+"""Streaming single-pass ingestion at a scale beyond host memory.
 
 Builds SQ, BQ, and PQ indexes over an N x D corpus that NEVER exists in host
 RAM (batches are generated, uploaded once, encoded on device into
@@ -8,10 +8,11 @@ exact f32 ground truth — which is computed incrementally on the same
 uploaded batches, so the f32 data crosses the host->device link exactly
 once.
 
-This is the TPU-native answer to the reference's streaming encode from a
+This is the device-side answer to the reference's streaming encode from a
 re-cloneable iterator (encoded_vectors_u8.rs:35, SURVEY.md §7 hard part 5),
 scaled to corpora where neither the f32 data (30GB at 10M x 768) nor the
-[Q, N] score matrix fit anywhere: scoring uses the fused search kernels.
+[Q, N] score matrix fit anywhere: scoring blocks the corpus
+(ops/topk.py blocked_topk).
 
     python examples/streaming_ingest.py --n 10000000 --d 768
 """
@@ -48,7 +49,6 @@ def main():
     from quantization_tpu.ops import pq as pq_ops
     from quantization_tpu.ops import sq as sq_ops
     from quantization_tpu.ops.kmeans import kmeans_batched
-    from quantization_tpu.ops.pallas.sq_kernel import TILE_N as SQ_TILE
     from quantization_tpu.utils.compile_cache import enable_compilation_cache
     from quantization_tpu.utils.device_store import DeviceAppender
 
@@ -118,7 +118,7 @@ def main():
     alpha, offset = sq_ops.alpha_offset_from_min_max(mn, mx)
     actual = sq_ops.actual_dim(D)
     lane = sq_ops.lane_dim(D)
-    npad = N + (-N) % SQ_TILE
+    npad = N + (-N) % sq_ops.ROW_ALIGN
     w = -(-D // 32)
     w8 = w + (-w) % 8
     dp = w8 * 32
@@ -225,10 +225,8 @@ def main():
     two = qt.TwoStageIndex(bq, sq, oversampling=8.0)
 
     for name, fn in [
-        ("SQ fused full-scan", lambda: sq.top_k_device(eq_sq, K)),
-        ("SQ fused approx", lambda: sq.top_k_device(eq_sq, K, method="approx")),
-        ("BQ fused full-scan", lambda: bq.top_k_device(eq_bq, K)),
-        ("BQ fused approx", lambda: bq.top_k_device(eq_bq, K, method="approx")),
+        ("SQ full-scan", lambda: sq.top_k_device(eq_sq, K)),
+        ("BQ full-scan", lambda: bq.top_k_device(eq_bq, K)),
         ("PQ full-scan", lambda: pq.top_k_device(eq_pq, K)),
         ("two-stage BQ->SQ", lambda: two.top_k_device((eq_bq, eq_sq), K)),
     ]:

@@ -1,10 +1,10 @@
-"""quantization_tpu — TPU-native vector quantization engine.
+"""quantization_tpu — a vector quantization engine in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
-qdrant/quantization: compress float32 embedding corpora into scalar-u8,
-product-quantization, or binary codes, and score query batches against them
-with MXU/VPU kernels, preserving the reference's "bigger score = better unless
-``invert``" contract — batched, jittable, and shardable over TPU meshes.
+A from-scratch JAX/XLA re-design of the capabilities of qdrant/quantization:
+compress float32 embedding corpora into scalar-u8, product-quantization, or
+binary codes, and score query batches against them on device, preserving the
+reference's "bigger score = better unless ``invert``" contract — batched,
+jittable, and shardable over device meshes.
 """
 
 from .core.types import (

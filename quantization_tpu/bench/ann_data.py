@@ -1,6 +1,6 @@
 """ANN benchmark datasets + measurement harness.
 
-TPU-native port of demos/src/ann_benchmark_data.rs: the same metrics
+JAX port of demos/src/ann_benchmark_data.rs: the same metrics
 vocabulary (recall ``same_10/same_20/same_30`` at ann_benchmark_data.rs:168-183,
 latency min/avg/p95/p99/max at :202-220, encode wall-clock), the same HDF5
 layout (train/test/neighbors/distances), and the same cosine preprocessing
@@ -57,6 +57,35 @@ def cosine_preprocess(data: np.ndarray) -> np.ndarray:
     return (data / norms).astype(np.float32)
 
 
+def clustered_corpus(
+    count: int, dim: int, queries: int, seed: int, block_rows: int = 1 << 18
+):
+    """Seeded ``(train f32[count, dim], test f32[queries, dim])``: 64
+    gaussian centers with anisotropic spread give realistic (non-uniform)
+    neighbor structure. Rows are drawn in blocks written in place, so peak
+    host memory stays near the corpus itself at any count; the random
+    stream is the same as one whole-corpus draw."""
+    rng = np.random.default_rng(seed)
+    n_centers = 64
+    centers = rng.standard_normal((n_centers, dim)).astype(np.float32)
+    scales = (0.3 + rng.random(n_centers, dtype=np.float32))[:, None]
+
+    def draw(assign):
+        out = np.empty((assign.shape[0], dim), np.float32)
+        for b0 in range(0, assign.shape[0], block_rows):
+            a = assign[b0 : b0 + block_rows]
+            blk = rng.standard_normal((a.shape[0], dim), dtype=np.float32)
+            blk *= scales[a]
+            blk *= np.float32(0.5)
+            blk += centers[a]
+            out[b0 : b0 + a.shape[0]] = blk
+        return out
+
+    train = draw(rng.integers(0, n_centers, count))
+    test = draw(rng.integers(0, n_centers, queries))
+    return train, test
+
+
 @dataclasses.dataclass
 class AnnBenchmarkData:
     name: str
@@ -95,31 +124,14 @@ class AnnBenchmarkData:
     def synthetic(
         cls, spec: DatasetSpec, count: int, queries: int, seed: int
     ) -> "AnnBenchmarkData":
-        """Clustered gaussian corpus of the dataset's shape: 64 centers with
-        anisotropic spread gives realistic (non-uniform) neighbor structure."""
-        rng = np.random.default_rng(seed)
-        n_centers = 64
-        centers = rng.standard_normal((n_centers, spec.dim)).astype(np.float32)
-        scales = (0.3 + rng.random(n_centers, dtype=np.float32))[:, None]
-        assign = rng.integers(0, n_centers, count)
-        train = (
-            centers[assign]
-            + rng.standard_normal((count, spec.dim)).astype(np.float32)
-            * scales[assign]
-            * 0.5
-        )
-        qassign = rng.integers(0, n_centers, queries)
-        test = (
-            centers[qassign]
-            + rng.standard_normal((queries, spec.dim)).astype(np.float32)
-            * scales[qassign]
-            * 0.5
-        )
+        """Clustered gaussian corpus of the dataset's shape (see
+        ``clustered_corpus``)."""
+        train, test = clustered_corpus(count, spec.dim, queries, seed)
         data = cls(
             spec.name + "-synthetic",
             spec.distance_type,
-            train.astype(np.float32),
-            test.astype(np.float32),
+            train,
+            test,
             np.zeros((queries, 0), np.int64),
         )
         # Ground truth must reflect the metric actually benchmarked: angular

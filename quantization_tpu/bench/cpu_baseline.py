@@ -3,7 +3,7 @@
 Rust is not available in this environment, so the reference crate cannot be
 built; instead the native C++ scan kernels (g++ -O3 -march=native, the same
 autovectorized loops the reference's cc-built C kernels compile to) measure
-single-core CPU scoring QPS for the "TPU >= 10x CPU" target in BASELINE.md.
+single-core CPU scoring QPS, the CPU side of a device-vs-CPU comparison.
 
 Run: python -m quantization_tpu.bench.cpu_baseline [N] [D]
 """

@@ -1,4 +1,4 @@
-"""Exact f32 distance oracle, batched (the TPU inversion of the reference's
+"""Exact f32 distance oracle, batched (the batch form of the reference's
 scalar ``DistanceType::distance`` at encoded_vectors.rs:37-45).
 
 Everything here is pure jnp and jit-friendly. The *batch* is the primitive:
@@ -38,17 +38,23 @@ def pairwise(
 ) -> jax.Array:
     """Exact [Q, N] distance matrix between queries[Q, D] and corpus[N, D].
 
-    DOT and L2 ride the MXU (matmul / norm expansion); L1 is computed in
-    N-tiles on the VPU to avoid materializing [Q, N, D].
+    DOT and L2 are one matmul (L2 by norm expansion), pinned to HIGHEST
+    precision: this is the exact reference, and a default-precision f32
+    matmul may run in TF32 (about three decimal digits). L1 is computed in
+    N-tiles to avoid materializing [Q, N, D].
     """
     queries = jnp.asarray(queries, jnp.float32)
     corpus = jnp.asarray(corpus, jnp.float32)
+    if distance_type in (DistanceType.DOT, DistanceType.L2):
+        dots = jnp.matmul(
+            queries, corpus.T, precision=jax.lax.Precision.HIGHEST
+        )
     if distance_type == DistanceType.DOT:
-        return queries @ corpus.T
+        return dots
     if distance_type == DistanceType.L2:
         qq = jnp.sum(queries * queries, axis=-1, keepdims=True)  # [Q, 1]
         nn = jnp.sum(corpus * corpus, axis=-1)  # [N]
-        return qq + nn[None, :] - 2.0 * (queries @ corpus.T)
+        return qq + nn[None, :] - 2.0 * dots
     if distance_type == DistanceType.L1:
         # Tile over N so peak memory is Q * TILE * D.
         tile = 1024

@@ -1,15 +1,15 @@
-"""The EncodedVectors contract — batched, TPU-first.
+"""The EncodedVectors contract — batched, device-first.
 
 Re-design of the reference trait (encoded_vectors.rs:21-35). The reference
 exposes point-at-a-time scoring (``score_point(query, i)``) and leaves batching
-to the caller; on TPU the batch is the primitive, so the contract here is:
+to the caller; on a device the batch is the primitive, so the contract here is:
 
   - ``encode_query(queries)``     — accepts [D] or [Q, D]
   - ``score_batch(equery)``       — full [Q, N] score matrix (one device op)
   - ``score_points(equery, ids)`` — [Q, P] scores against selected points
   - ``score_point(equery, i)``    — scalar parity shim over score_points
   - ``score_internal(i, j)``      — point-vs-point inside the encoded corpus
-  - ``top_k(equery, k)``          — fused score + top-k (the serving hot path)
+  - ``top_k(equery, k)``          — score + top-k on device (the serving hot path)
   - ``save/load``                 — two-file checkpoint (JSON meta + raw blob)
 
 Ingestion accepts either a materialized [count, dim] float32 array or a
@@ -164,10 +164,9 @@ class EncodedVectors(abc.ABC):
 
         "Best" always means largest score — callers encode their ranking
         direction via ``invert`` exactly as in the reference contract.
-        ``method``: "exact" or "approx" (TPU approx_max_k).
-        ``recall_target`` (approx only, default 0.95) is the fused search's
-        final-merge recall/speed dial — forwarded to ``top_k_device`` only
-        when set, so subclasses without the knob keep working.
+        ``method``: "exact" or "approx" (exact on this card, ops/topk.py).
+        ``recall_target`` is forwarded to ``top_k_device`` only when set,
+        so subclasses without the knob keep working.
         """
         if recall_target is None:
             s, i = self.top_k_device(equery, k, method=method)

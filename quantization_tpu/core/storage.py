@@ -1,6 +1,6 @@
 """Flat byte-blob storage seam + two-file (JSON meta, raw blob) checkpoint format.
 
-TPU-native equivalent of the reference storage abstraction
+Device-side equivalent of the reference storage abstraction
 (quantization/src/encoded_storage.rs:7-70): fixed-stride row access, file
 save/load with a total-size check, and a push-style builder. Qdrant injects
 mmap-backed storages through this seam; we keep the seam and provide both an
@@ -93,7 +93,7 @@ class EncodedStorageBuilder:
     """Append-only builder (reference EncodedStorageBuilder,
     encoded_storage.rs:21-25).
 
-    The reference pushes one vector at a time from a thread ring; on TPU we
+    The reference pushes one vector at a time from a thread ring; here we
     encode whole device batches, so ``push_batch`` is the primary API and
     ``push_vector_data`` the per-row compatibility shim.
     """

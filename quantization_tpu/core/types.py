@@ -1,6 +1,6 @@
 """Core contracts: distance types, vector parameters, and error taxonomy.
 
-TPU-native re-design of the reference's core contract layer
+Batched re-design of the reference's core contract layer
 (reference: quantization/src/encoded_vectors.rs:6-19, quantization/src/lib.rs:18-24).
 The JSON wire format of ``DistanceType`` ("Dot" / "L1" / "L2") and
 ``VectorParameters`` ({dim, count, distance_type, invert}) matches the
@@ -120,7 +120,7 @@ def check_stop(stop_condition) -> None:
     """Raise StoppedError if the caller's cancellation flag is set.
 
     Called between device steps in every chunked host-side loop — the
-    TPU-native equivalent of the reference's per-vector ``stop_condition()``
+    batched equivalent of the reference's per-vector ``stop_condition()``
     checks (encode loops batch thousands of vectors per device step, so the
     check granularity is one batch instead of one vector).
     """

@@ -1,9 +1,9 @@
-"""Binary quantizer — the TPU-native EncodedVectorsBin.
+"""Binary quantizer — the batched EncodedVectorsBin.
 
 Re-design of quantization/src/encoded_vectors_binary.rs: sign-bit packing
 (v > 0 -> 1) scored by XOR + popcount, with the Hamming count mapped onto the
 dot/L1/L2 score contract. Device layout is bit-plane uint32[W, N] (corpus axis
-on TPU lanes); the on-disk blob keeps the reference's row-major packed-bytes
+minor); the on-disk blob keeps the reference's row-major packed-bytes
 layout with its word-size tiers (``store_type`` = "u8" | "u128" reproduces the
 two BitsStoreType instantiations, encoded_vectors_binary.rs:44-160).
 """
@@ -33,7 +33,7 @@ from ..core.types import (
     check_stop,
 )
 from ..ops import bq as bq_ops
-from ..ops import dispatch
+from ..ops import topk as topk_ops
 
 
 @dataclass
@@ -59,7 +59,7 @@ class EncodedQueryBin:
 
 
 class BinaryQuantizer(EncodedVectors):
-    """Sign-bit codec with XOR-popcount VPU scoring."""
+    """Sign-bit codec with XOR-popcount scoring."""
 
     def __init__(
         self,
@@ -67,14 +67,12 @@ class BinaryQuantizer(EncodedVectors):
         metadata: BQMetadata,
         store_type: str = "u128",
     ):
-        # Pad the corpus axis to the Pallas tile and the plane-word axis to
-        # the 8-sublane tile (zero words XOR to zero popcount, zero columns
-        # are sliced off by count).
-        from ..ops.pallas.bq_kernel import TILE_N, W_ALIGN
-
+        # Pad the corpus axis and the plane-word axis to the layout's
+        # alignment (zero words XOR to zero popcount, zero columns are
+        # sliced off by count).
         count = metadata.vector_parameters.count
-        npad = count + (-count) % TILE_N
-        pad_w = (-planes.shape[0]) % W_ALIGN
+        npad = count + (-count) % bq_ops.ROW_ALIGN
+        pad_w = (-planes.shape[0]) % bq_ops.WORD_ALIGN
         pad_n = npad - planes.shape[1] if planes.shape[1] < npad else 0
         if pad_w or pad_n:
             # Guarded: an unconditional jnp.pad is a full copy even with
@@ -175,34 +173,6 @@ class BinaryQuantizer(EncodedVectors):
 
     # ------------------------------------------------------------------ score
     def score_batch(self, equery: EncodedQueryBin) -> jax.Array:
-        if (
-            dispatch.use_pallas()
-            and self.count
-            and self.planes.shape[0] > 0
-        ):
-            from ..ops.pallas.bq_kernel import bq_scores_mxu, bq_scores_pallas
-
-            # Default to the MXU unpack-and-matmul kernel (integer-exact;
-            # measured 2.5ms vs 2.8ms for the VPU xor kernel on v5e at
-            # 256x100k, and it scales better with D); QTPU_BQ_KERNEL=xor
-            # forces the plane-XOR path.
-            if os.environ.get("QTPU_BQ_KERNEL", "mxu") == "mxu":
-                return bq_scores_mxu(
-                    equery.planes,
-                    self.planes,
-                    distance_type=self.params.distance_type,
-                    invert=self.params.invert,
-                    dim=self.params.dim,
-                    n_valid=self.count,
-                )
-            return bq_scores_pallas(
-                equery.planes,
-                self.planes,
-                distance_type=self.params.distance_type,
-                invert=self.params.invert,
-                dim=self.params.dim,
-                n_valid=self.count,
-            )
         return bq_ops.score_batch_xla(
             equery.planes,
             self.planes[:, : self.count],
@@ -215,46 +185,12 @@ class BinaryQuantizer(EncodedVectors):
         self, equery: EncodedQueryBin, k: int, method: str = "exact",
         recall_target: Optional[float] = None,
     ):
-        """Fused MXU search on TPU: bit unpack + int8 matmul + in-tile
-        top-k, no [Q, N] score matrix (the coarse stage of two-stage
-        retrieval scans the full corpus, so this is where the score-matrix
-        memory wall bites first)."""
-        from ..ops.pallas.ktile import APPROX_K_MAX, FUSED_K_MAX
-
-        fused_ok = (
-            (k <= FUSED_K_MAX) if method == "exact"
-            else (k <= APPROX_K_MAX)
-        )
-        if (
-            dispatch.use_pallas()
-            and self.count
-            and self.planes.shape[0] > 0
-            and fused_ok
-            and os.environ.get("QTPU_BQ_KERNEL", "mxu") == "mxu"
-        ):
-            from ..ops.pallas.bq_kernel import bq_search_mxu
-
-            return bq_search_mxu(
-                equery.planes,
-                self.planes,
-                distance_type=self.params.distance_type,
-                invert=self.params.invert,
-                dim=self.params.dim,
-                n_valid=self.count,
-                k=k,
-                mode=method,
-                recall_target=(
-                    0.95 if recall_target is None else float(recall_target)
-                ),
-            )
-        from ..ops.topk import BLOCK_ROWS, blocked_topk
-
-        if self.count > BLOCK_ROWS:
-            # Exact at any k with [Q, block] peak memory — never a silent
-            # [Q, N] score-matrix allocation at 10M scale.
-            from ..utils.fallback import warn_unfused
-
-            warn_unfused("BQ", self.count, k, method)
+        """Score + select; beyond ``ops.topk.BLOCK_ROWS`` rows block by
+        block (exact at any k, [Q, block] peak memory). The coarse stage
+        of two-stage retrieval scans the full corpus, so this is where the
+        score-matrix memory wall bites first. ``recall_target`` is
+        accepted for interface parity and unused."""
+        if self.count > topk_ops.BLOCK_ROWS:
 
             def score_block(b0, b1):
                 return bq_ops.score_batch_xla(
@@ -265,7 +201,7 @@ class BinaryQuantizer(EncodedVectors):
                     dim=self.params.dim,
                 )
 
-            return blocked_topk(score_block, self.count, k, method)
+            return topk_ops.blocked_topk(score_block, self.count, k, method)
         return super().top_k_device(equery, k, method=method)
 
     def score_points(self, equery: EncodedQueryBin, ids) -> jax.Array:

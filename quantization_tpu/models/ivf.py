@@ -11,11 +11,10 @@ built over the S-aligned permuted corpus so bucket b owns inner rows
 The scan is BATCH-UNION compaction, not per-query gathering: each query
 votes for its ``nprobe`` nearest buckets, the ``nscan`` most-voted
 buckets are gathered — whole contiguous [S, row] blocks — into one
-compact sub-corpus, and the family's own fused search kernel scans it
-for the entire batch (see ``_ivf_search`` for the measured rationale).
-The entire search — probe matmul, vote, compaction, fused scan, dedupe,
-select — is ONE jitted dispatch (arrays passed as arguments, never baked
-as jit constants).
+compact sub-corpus, and the family's own score + select scans it for the
+entire batch (see ``_ivf_search`` for the rationale). The entire search —
+probe matmul, vote, compaction, scan, dedupe, select — is ONE jitted
+dispatch (arrays passed as arguments, never baked as jit constants).
 
 Plugs into ``TwoStageIndex`` as a coarse stage (it exposes the same
 ``encode_query`` / ``top_k_device`` / ``count`` surface), which gives the
@@ -46,6 +45,7 @@ from ..ops import bq as bq_ops
 from ..ops import ivf as ivf_ops
 from ..ops import pq as pq_ops
 from ..ops import sq as sq_ops
+from ..ops import topk as topk_ops
 
 NEG = np.float32(-3.0e38)  # plain scalar: no device init at import time
 
@@ -66,9 +66,9 @@ class _ResidualQueryU8:
 class _ResidualQueryBQ:
     """ASYMMETRIC residual-BQ query (see IVFIndex.encode_query): the
     corpus keeps 1-bit residual signs, but the query side keeps its
-    quantized VALUES — int8 [Q, Dpad] in [-127, 127] — so the kernel's
-    affine hooks score q . sign(r) directly (a strictly better estimator
-    of q . r than sign(q) . sign(r), at identical MXU cost). ``mult`` =
+    quantized VALUES — int8 [Q, Dpad] in [-127, 127] — so the affine
+    scan scores q . sign(r) directly (a strictly better estimator of
+    q . r than sign(q) . sign(r), at the same matmul cost). ``mult`` =
     2*A*beta*aq (traced [Q, 1] — aq is each query's own code scale) and
     ``qb`` = -A*beta*aq*sum(q^) complete mult*(qs.bits)+qb = A*beta*(q.sign r);
     beta = E|r_i| (metadata.residual_scale) maps sign units back to data
@@ -174,7 +174,7 @@ def _residual_coeffs(dt: DistanceType, invert: bool):
 def _residual_query_sq(q, alpha, offset, dpad, a, rc) -> _ResidualQueryU8:
     """Residual-SQ query codes (see IVFIndex.encode_query): zero-centered
     SIGNED codes, each query scaled by its OWN aq = max|q_i| / 127 (no
-    batch coupling — the kernels take a per-query multiplier column),
+    batch coupling — the scan takes a per-query multiplier column),
     |q|^2 folded into the offset, the effective multiplier A*aq*ar a
     traced [Q] vector."""
     qn = jnp.sum(q * q, axis=1)
@@ -190,7 +190,7 @@ def _residual_query_sq(q, alpha, offset, dpad, a, rc) -> _ResidualQueryU8:
 def _residual_query_bq(q, dp, a, beta) -> _ResidualQueryBQ:
     """Residual-BQ asymmetric query (see _ResidualQueryBQ): quantized
     VALUE codes, each query scaled by its OWN aq = max|q_i| / 127 (no
-    batch coupling — the kernels take a per-query multiplier column),
+    batch coupling — the scan takes a per-query multiplier column),
     affine completed so mult*(qs . bits) + qb = A*beta*(q . sign(r)):
     q . sign(r) = aq * (2*(q^ . bits) - sum(q^)) on the true dims (padded
     dims hit q^ = 0)."""
@@ -206,31 +206,28 @@ def _residual_query_bq(q, dp, a, beta) -> _ResidualQueryBQ:
 
 def _residual_query_pq(lut, a):
     """Residual-PQ query LUT: ``a`` rescales the inner DOT entries. The
-    per-query rc*|q|^2 term is NOT folded into the LUT — it used to ride
-    chunk 0, but a data-scale constant (~|q|^2) sitting on residual-scale
-    entries destroys the kernel LUTs' precision (bf16 ulp at 300 is ~2;
-    the int8 per-query scale blows up the step). It joins the f32 ``corr``
-    additive inside the search instead (applied post-dequant, exact)."""
+    per-query rc*|q|^2 term is NOT folded into the LUT: a data-scale
+    constant (~|q|^2) sitting on residual-scale entries would cost them
+    precision. It joins the f32 ``corr`` additive inside the search
+    instead."""
     from .pq import EncodedQueryPQ
 
     return EncodedQueryPQ(a * lut)
 
 
 def auto_geometry(count: int, residual: bool = False):
-    """``(nlist, bucket_size)`` from the measured geometry rules
-    (BASELINE "Bucket-size leg" + padding rule): bucket_size is the
-    widest tile the families' indexed scans ride (1024 — PQ's full
-    kernel tile engages there and SQ's widened tile is near dense-scan
-    parity; 2048 over-pads at sane nlist), halved for small corpora so
-    the index keeps >= ~8 buckets of probing headroom; then
-    nlist * bucket_size ~ count / 3 (several buckets per k-means cell,
-    bounded pad waste). ``residual`` floors bucket_size at the kernels'
-    CORR_BLK (512)."""
+    """``(nlist, bucket_size)`` from the geometry rules: bucket_size 1024
+    (2048 over-pads at sane nlist), halved for small corpora so the index
+    keeps >= ~8 buckets of probing headroom; then nlist * bucket_size ~
+    count / 3 (several buckets per k-means cell, bounded pad waste).
+    ``residual`` floors bucket_size at ``ops.ivf.RESIDUAL_ALIGN`` (512).
+    The sizes come from kernels this repo no longer has; retuning them
+    for the current scan is ROADMAP Design 4."""
     s = 1024
     while s > 32 and count < 3 * 8 * s:
         s //= 2
     if residual:
-        s = max(s, 512)
+        s = max(s, ivf_ops.RESIDUAL_ALIGN)
     return max(1, count // (3 * s)), s
 
 
@@ -261,26 +258,22 @@ def _bucket_priority(q, means, dt, invert, p):
 
 
 def _scan_buckets_compact(
-    kind, eq, inner, union, *, nb, s, dt, invert, dim, use_fused,
-    kk2, method, corr=None, rowadd=None, precision=None, rt=0.95,
+    kind, eq, inner, union, *, nb, s, dt, invert, dim, kk2,
+    corr=None, rowadd=None, pq_transposed=False,
 ):
     """Gather the union's buckets — whole contiguous [S, bytes] blocks —
-    into one compact sub-corpus and scan it with the family's own kernel
-    (fused search when ``use_fused``, XLA score + select otherwise).
-    ``inner`` arrays must hold exactly ``nb`` buckets' rows along the
-    corpus axis (callers slice). Returns (sv [Q, kk2], loc [Q, kk2]) with
-    ``loc`` a position in union-slot space [0, U*s) or -1.
+    into one compact sub-corpus, score it with the family's score op and
+    select. ``inner`` arrays must hold exactly ``nb`` buckets' rows along
+    the corpus axis (callers slice). Returns (sv [Q, kk2], loc [Q, kk2])
+    with ``loc`` a position in union-slot space [0, U*s).
 
     ``corr`` (residual indexes): per-(query, union bucket) additive
-    [Q, U], expanded to the kernels' CORR_BLK granularity here;
-    ``rowadd`` a per-slot additive [nb*s] (PQ only — SQ's rides voff)."""
+    [Q, U]; ``rowadd`` a per-slot additive [nb*s] (PQ only — SQ's rides
+    voff). ``pq_transposed``: PQ codes arrive chunk-major [Mpad, Npad]
+    (a transposed-first quantizer); only the union's columns are
+    gathered and transposed."""
     u = union.shape[0]
     width = u * s
-    kernel_mode = "approx" if method == "approx" else "exact"
-    if corr is not None:
-        from ..ops.pallas.sq_kernel import CORR_BLK
-
-        corr_c = jnp.repeat(corr, s // CORR_BLK, axis=1)  # [Q, width/512]
 
     if kind == "sq":
         qcodes, qoff = eq
@@ -292,164 +285,89 @@ def _scan_buckets_compact(
         gv = jnp.take(
             voff[: nb * s].reshape(nb, s), union, axis=0
         ).reshape(width)
-        if use_fused:
-            from ..ops.pallas.sq_kernel import TILE_N as SQ_TILE
-
-            npadc = -(-width // SQ_TILE) * SQ_TILE
-            g = jnp.pad(g, ((0, npadc - width), (0, 0)))
-            gv = jnp.pad(gv, ((0, npadc - width),))
-            from ..ops.pallas.sq_kernel import CORR_BLK, sq_search_pallas
-
-            corr_k = None
-            if corr is not None:
-                corr_k = jnp.pad(
-                    corr_c,
-                    ((0, 0), (0, (npadc - width) // CORR_BLK)),
-                )
-            sv, loc = sq_search_pallas(
-                qcodes, qoff, g, gv, mult, corr_k,
-                distance_type=dt, n_valid=width, k=kk2,
-                mode=kernel_mode, recall_target=rt,
-            )
-        else:
-            scores = sq_ops.score_batch_xla(
-                qcodes, qoff, g, gv, mult, distance_type=dt
-            )
-            if corr is not None:
-                from ..ops.pallas.sq_kernel import CORR_BLK
-
-                scores = scores + jnp.repeat(corr_c, CORR_BLK, axis=1)
+        scores = sq_ops.score_batch_xla(
+            qcodes, qoff, g, gv, mult, distance_type=dt
+        )
     elif kind == "bq":
-        qaff = None
-        if len(eq) == 3:  # residual: asymmetric affine query
-            qaff, qplanes = tuple(eq), None
-        else:
-            (qplanes,) = eq
         (planes,) = inner
         w8 = planes.shape[0]
         g = jnp.take(
             planes[:, : nb * s].reshape(w8, nb, s), union, axis=1
         ).reshape(w8, width)
-        if use_fused:
-            from ..ops.pallas.bq_kernel import TILE_N as BQ_TILE
-            from ..ops.pallas.bq_kernel import bq_search_mxu
-
-            npadc = -(-width // BQ_TILE) * BQ_TILE
-            g = jnp.pad(g, ((0, 0), (0, npadc - width)))
-            corr_k = None
-            if corr is not None:
-                corr_k = jnp.pad(
-                    corr_c,
-                    ((0, 0), (0, (npadc - width) // CORR_BLK)),
-                )
-            sv, loc = bq_search_mxu(
-                qplanes, g, corr_k,
-                distance_type=dt, invert=invert, dim=dim,
-                n_valid=width, k=kk2, mode=kernel_mode,
-                recall_target=rt, query_affine=qaff,
-            )
+        if len(eq) == 3:  # residual: asymmetric affine query
+            scores = bq_ops.score_affine_xla(*eq, g)
         else:
-            if qaff is not None:
-                scores = bq_ops.score_affine_xla(*qaff, g)
-            else:
-                scores = bq_ops.score_batch_xla(
-                    qplanes, g, distance_type=dt, invert=invert, dim=dim
-                )
-            if corr is not None:
-                scores = scores + jnp.repeat(corr_c, CORR_BLK, axis=1)
+            scores = bq_ops.score_batch_xla(
+                eq[0], g, distance_type=dt, invert=invert, dim=dim
+            )
     else:  # pq
         (lut,) = eq
         (codes,) = inner
-        m = codes.shape[1]  # padded chunk count (zero LUT rows past m)
+        m = lut.shape[1]
         # ROW gather (bucket blocks expanded to row ids): gathering via a
-        # [nb, s*m] reshape forces a full-matrix copy at capacity scale
-        # (the round-5 100M OPQ compile OOM); a flat row gather touches
-        # only the union's bytes.
+        # [nb, s*m] reshape would copy the whole matrix at capacity scale;
+        # a flat row gather touches only the union's bytes.
         rows = (
             union[:, None] * s
             + jnp.arange(s, dtype=union.dtype)[None, :]
         ).reshape(-1)
-        g = jnp.take(codes, rows, axis=0)  # [width, m]
+        if pq_transposed:
+            g = jnp.transpose(jnp.take(codes[:m], rows, axis=1))
+        else:
+            g = jnp.take(codes, rows, axis=0)[:, :m]  # [width, m]
+        scores = pq_ops.score_lut_xla(lut, g)
         if rowadd is not None:
             ra_g = jnp.take(
                 rowadd[: nb * s].reshape(nb, s), union, axis=0
             ).reshape(width)
-        if use_fused:
-            from ..ops.pallas.pq_kernel import M_BLK
-            from ..ops.pallas.pq_kernel import TILE_N as PQ_TILE
-            from ..ops.pallas.pq_kernel import pq_search_pallas
+            scores = scores + ra_g[None, :]
+    if corr is not None:
+        scores = scores + jnp.repeat(corr, s, axis=1)
 
-            npadc = -(-width // PQ_TILE) * PQ_TILE
-            mpad = -(-m // M_BLK) * M_BLK
-            ct = jnp.pad(
-                jnp.transpose(g),
-                ((0, mpad - m), (0, npadc - width)),
-            )
-            ra_k = corr_k = None
-            if corr is not None:
-                from ..ops.pallas.sq_kernel import CORR_BLK
+    # Exact selection for every method (ops/topk.py).
+    return jax.lax.top_k(scores, kk2)
 
-                ra_k = jnp.pad(ra_g, ((0, npadc - width),))
-                corr_k = jnp.pad(
-                    corr_c,
-                    ((0, 0), (0, (npadc - width) // CORR_BLK)),
-                )
-            sv, loc = pq_search_pallas(
-                lut, ct, ra_k, corr_k,
-                n_valid=width, k=kk2, mode=kernel_mode,
-                precision=precision, recall_target=rt,
-            )
-        else:
-            # Gathered sub-corpus is small — slicing its pad columns to
-            # the LUT's true chunk count here is cheap.
-            scores = pq_ops.score_lut_xla(lut, g[:, : lut.shape[1]])
-            if corr is not None:
-                from ..ops.pallas.sq_kernel import CORR_BLK
 
-                scores = (
-                    scores
-                    + ra_g[None, :]
-                    + jnp.repeat(corr_c, CORR_BLK, axis=1)
-                )
-
-    if not use_fused:
-        if method == "approx" and width >= 4 * kk2:
-            sv, loc = jax.lax.approx_max_k(scores, kk2, recall_target=rt)
-            loc = loc.astype(jnp.int32)
-        else:
-            sv, loc = jax.lax.top_k(scores, kk2)
-    return sv, loc
+def _union_bucket_term(q, means_u, corr_scale, kind, dt, invert):
+    """Residual bucket term corr_scale * (q . c_b) [Q, U] for the scanned
+    buckets' means only (UNION-FIRST: O(U), not an all-buckets [Q, B]
+    matmul). HIGHEST: the term is data-scale (|q||c_b| ~ hundreds) while
+    residual ranking is residual-scale; a reduced-precision f32 dot
+    injects ~0.1-1 score noise here."""
+    corr = jnp.matmul(
+        means_u, q.T, precision=jax.lax.Precision.HIGHEST
+    ) * corr_scale  # [U, Q]
+    if kind == "pq":
+        # PQ carries rc*|q|^2 here (f32, exact) rather than on the LUT —
+        # see _residual_query_pq. SQ folds it into qoff.
+        _, rc = _residual_coeffs(dt, invert)
+        if rc != 0.0:
+            corr = corr + rc * jnp.sum(q * q, axis=1)[None, :]
+    return jnp.transpose(corr)
 
 
 @partial(
     jax.jit,
     static_argnames=(
-        "kind", "k", "p", "u", "method", "dt", "invert", "s", "dim",
-        "use_fused", "indexed", "kk2", "itile", "precision", "rt",
+        "kind", "k", "p", "u", "dt", "invert", "s", "dim", "kk2",
+        "pq_transposed",
     ),
 )
 def _ivf_search(
     q, eq, means, slot_ids, inner, resid=None,
-    *, kind, k, p, u, method, dt, invert, s, dim, use_fused,
-    indexed=False, kk2=None, itile=0, precision=None, rt=0.95,
+    *, kind, k, p, u, dt, invert, s, dim, kk2=None, pq_transposed=False,
 ):
     """One-dispatch IVF search, batch-union compaction strategy.
 
-    Per-query probing gathers scattered rows, and measured on v5e the XLA
-    row gather runs at ~27 GB/s against the fused kernels' ~350 GB/s
-    corpus stream (the per-query LUT gather for PQ is worse still) — so a
-    literal per-query scan loses to the full scan it is meant to beat.
-    Instead: every query votes for its ``p`` nearest buckets, the ``u``
-    most-voted buckets are scanned for the whole batch with the family's
-    own fused search kernel — identical MXU sharing to the full scan, at
-    the probed fraction of the rows (``indexed``: the kernel's corpus
-    grid walks the selected tiles in place via a scalar-prefetch index
-    map; otherwise the buckets are first gathered into one compact
-    sub-corpus, ``_scan_buckets_compact``). Every query is scored against
-    the whole union (a superset of its own voted buckets that survived),
-    so recall dominates same-width per-query probing. Pad slots duplicate
-    real rows (valid codes, correct ids via ``slot_ids``); the final
-    2k-wide select is deduped by id.
+    Per-query probing gathers scattered rows and scores each query alone,
+    which turns the batch's shared matmul into Q small ones. Instead:
+    every query votes for its ``p`` nearest buckets, the ``u`` top-priority
+    buckets are gathered into one compact sub-corpus
+    (``_scan_buckets_compact``) and scored for the whole batch. Every
+    query is scored against the whole union (a superset of its own voted
+    buckets that survived), so recall dominates same-width per-query
+    probing. Pad slots duplicate real rows (valid codes, correct ids via
+    ``slot_ids``); the final 2k-wide select is deduped by id.
 
     ``eq`` / ``inner`` are per-family array tuples (see
     ``IVFIndex._family_arrays``); everything else is static.
@@ -458,7 +376,7 @@ def _ivf_search(
     for SQ or ``(corr_scale, rowadd)`` for PQ — the inner codes score
     q . (v - c_b), and the bucket term corr_scale * (q . c_b) is computed
     here UNION-FIRST (one [U, D] x [D, Q] matmul against the scanned
-    buckets' means only) and added in-kernel before extraction."""
+    buckets' means only) and added before selection."""
     nq = q.shape[0]
     nb = means.shape[0]
     prio = _bucket_priority(q, means, dt, invert, p)
@@ -466,64 +384,18 @@ def _ivf_search(
     if kk2 is None:  # dedupe margin: pad slots duplicate rows
         kk2 = min(2 * k, u * s)
 
-    qc_u = rowadd = None
+    corr = rowadd = None
     if resid is not None:
-        # UNION-FIRST: only the u scanned buckets' additive columns are
-        # ever read, so gather their means and do one [U, D] x [D, Q]
-        # matmul — O(U) instead of the former all-buckets [Q, B] matmul
-        # + global repeat/pad/transpose, which scaled with nbuckets and
-        # measured ~2x the whole probed scan at 10M (nb=21.6k, u=1k).
-        # Built directly TRANSPOSED (queries on lanes) — the kernels'
-        # corr operand layout — so no minor-dim transpose remains.
-        # HIGHEST: the bucket term is data-scale (|q||c_b| ~ hundreds)
-        # while residual ranking is residual-scale; TPU's default f32 dot
-        # (one bf16 pass, ~2^-9) injects ~0.1-1 score noise here.
-        qc_u = jnp.matmul(
-            jnp.take(means, union, axis=0), q.T,
-            precision=jax.lax.Precision.HIGHEST,
-        ) * resid[0]  # [U, Q]
-        if kind == "pq":
-            # PQ carries rc*|q|^2 here (f32, exact) rather than on LUT
-            # chunk 0 — see _residual_query_pq. SQ folds it into qoff.
-            _, rc = _residual_coeffs(dt, invert)
-            if rc != 0.0:
-                qc_u = qc_u + rc * jnp.sum(q * q, axis=1)[None, :]
+        corr = _union_bucket_term(
+            q, jnp.take(means, union, axis=0), resid[0], kind, dt, invert
+        )
         if len(resid) > 1:
             rowadd = resid[1]
 
-    if indexed:
-        corr_t = None
-        if qc_u is not None:
-            from ..ops.pallas.sq_kernel import CORR_BLK
-
-            # SELECTION-order per-512-row-block layout [U*(s/512), Q]:
-            # block row j is the j-th selected tile's additive (buckets
-            # are CORR_BLK-aligned, tiles within a bucket consecutive).
-            corr_t = jnp.repeat(qc_u, s // CORR_BLK, axis=0)
-            if rowadd is not None:
-                nrows = inner[0].shape[1]  # pq only (transposed codes)
-                if rowadd.shape[0] < nrows:
-                    # Kernel-pad rows past nb*s: mask them outright.
-                    rowadd = jnp.pad(
-                        rowadd, (0, nrows - rowadd.shape[0]),
-                        constant_values=NEG,
-                    )
-        sv, gloc = _scan_buckets_indexed(
-            kind, eq, inner, union, s=s, itile=itile, dt=dt,
-            invert=invert, dim=dim, kk2=kk2, method=method,
-            corr=corr_t, rowadd=rowadd, precision=precision, rt=rt,
-        )
-        out_ids = jnp.take(slot_ids.reshape(-1), jnp.maximum(gloc, 0))
-        out_ids = jnp.where(gloc >= 0, out_ids, -1)
-        return _dedupe_select(sv, out_ids, nq, k, kk2)
-
     sv, loc = _scan_buckets_compact(
         kind, eq, inner, union, nb=nb, s=s, dt=dt, invert=invert,
-        dim=dim, use_fused=use_fused, kk2=kk2, method=method,
-        corr=(
-            None if qc_u is None else jnp.transpose(qc_u)
-        ),
-        rowadd=rowadd, precision=precision, rt=rt,
+        dim=dim, kk2=kk2, corr=corr, rowadd=rowadd,
+        pq_transposed=pq_transposed,
     )
     gids = jnp.take(slot_ids, union, axis=0).reshape(-1)  # [U*S]
     out_ids = jnp.take(gids, jnp.maximum(loc, 0))
@@ -531,161 +403,20 @@ def _ivf_search(
     return _dedupe_select(sv, out_ids, nq, k, kk2)
 
 
-# Indexed scans chunk their tile list beyond this many tiles: the fused
-# kernels' candidate buffers grow with the tile count (ceil(T/SPAN) *
-# SLOT columns x Q x 8 B), so an unchunked 23.7%-of-100M scan (46.8k
-# tiles) materializes ~3 GB of candidates next to ~10.7 GB of resident
-# planes and the allocator thrashes (BASELINE capacity leg, round 4).
-# 4096 tiles cap the per-chunk buffers at ~268 MB (Q=256); each chunk's
-# top-kk2 is exact w.r.t. its tiles, so the chunk merge loses nothing.
-_INDEXED_CHUNK_TILES = 4096
-
-# "auto" scan only builds the PQ indexed path's transposed code cache
-# while it fits this budget (doubling resident code bytes OOMs one chip
-# at the 100M capacity scale); QTPU_PQ_T_CAP overrides in bytes.
-_PQ_T_BYTES_CAP = int(os.environ.get("QTPU_PQ_T_CAP", 4 << 30))
+def _check_method(method: str) -> None:
+    if method not in topk_ops.METHODS:
+        raise ArgumentsError(f"unknown top-k method {method!r}")
 
 
-def _scan_buckets_indexed(
-    kind, eq, inner, union, *, s, itile, dt, invert, dim, kk2, method,
-    corr=None, rowadd=None, precision=None, rt=0.95,
-):
-    """In-place probed scan: the fused kernel's corpus grid walks the
-    union's tiles via a scalar-prefetch index map — only the selected
-    buckets' code columns stream from HBM, no compaction copy. ``union``
-    indexes buckets of the arrays in ``inner`` (full corpus single-device,
-    a shard's local slice inside shard_map). Returns (sv [Q, kk2],
-    gloc [Q, kk2]) with ``gloc`` a slot position in those arrays or -1.
-    ``corr``: residual per-block additive in SELECTION-order transposed
-    layout [U*(s/CORR_BLK), Q] (see _ivf_search); ``rowadd``: per-row
-    additive in GLOBAL layout (indexed by the same prefetch map as the
-    codes). Tile lists beyond ``_INDEXED_CHUNK_TILES`` are scanned in
-    chunks (one compiled kernel, reused) and exact-merged."""
-    kernel_mode = "approx" if method == "approx" else "exact"
-    tpb = s // itile
-    tiles = (
-        union[:, None] * tpb + jnp.arange(tpb, dtype=jnp.int32)
-    ).reshape(-1)
-    nt = tiles.shape[0]
-    if nt > _INDEXED_CHUNK_TILES:
-        from ..ops.pallas.sq_kernel import CORR_BLK
-
-        nc = -(-nt // _INDEXED_CHUNK_TILES)
-        c = -(-nt // nc)
-        pad = nc * c - nt
-        # Pad by repeating the last tile: duplicate candidates carry the
-        # same (score, loc) and the value merge keeps one of them.
-        tiles_p = jnp.pad(tiles, (0, pad), mode="edge")
-        cb = itile // CORR_BLK  # corr rows per tile (selection order)
-        corr_p = (
-            None if corr is None
-            else jnp.pad(corr, ((0, pad * cb), (0, 0)), mode="edge")
+def _check_scan(scan: str) -> None:
+    if scan == "indexed":
+        raise ArgumentsError(
+            "scan='indexed' (an in-place scan of the selected buckets) has "
+            "no GPU implementation yet; use scan='auto' or 'compact' (see "
+            "ROADMAP 'Removed, worth writing again for Hopper')"
         )
-        svs, locs = [], []
-        for j in range(nc):
-            sv_j, loc_j = _scan_tiles_indexed(
-                kind, eq, inner, tiles_p[j * c : (j + 1) * c],
-                itile=itile, dt=dt, invert=invert, dim=dim, kk2=kk2,
-                kernel_mode=kernel_mode,
-                corr=(
-                    None if corr_p is None
-                    else corr_p[j * c * cb : (j + 1) * c * cb]
-                ),
-                rowadd=rowadd, precision=precision, rt=rt,
-            )
-            svs.append(sv_j)
-            locs.append(loc_j)
-        sv_all = jnp.concatenate(svs, axis=1)
-        loc_all = jnp.concatenate(locs, axis=1)
-        sv_all = jnp.where(loc_all >= 0, sv_all, NEG)
-        sv, pos = jax.lax.top_k(sv_all, kk2)
-        loc = jnp.take_along_axis(loc_all, pos, axis=1)
-        return sv, jnp.where(sv > NEG, loc, -1)
-    return _scan_tiles_indexed(
-        kind, eq, inner, tiles, itile=itile, dt=dt, invert=invert,
-        dim=dim, kk2=kk2, kernel_mode=kernel_mode, corr=corr,
-        rowadd=rowadd, precision=precision, rt=rt,
-    )
-
-
-def _scan_tiles_indexed(
-    kind, eq, inner, tiles, *, itile, dt, invert, dim, kk2, kernel_mode,
-    corr=None, rowadd=None, precision=None, rt=0.95,
-):
-    if kind == "sq":
-        from ..ops.pallas.sq_kernel import sq_search_indexed
-
-        qcodes, qoff = eq
-        codes, voff, mult = inner
-        return sq_search_indexed(
-            qcodes, qoff, codes, voff, mult, tiles, corr,
-            distance_type=dt, k=kk2, mode=kernel_mode, tile_n=itile,
-            recall_target=rt,
-        )
-    if kind == "bq":
-        from ..ops.pallas.bq_kernel import bq_search_indexed
-
-        qaff = None
-        if len(eq) == 3:  # residual: asymmetric affine query
-            qaff, qplanes = tuple(eq), None
-        else:
-            (qplanes,) = eq
-        (planes,) = inner
-        return bq_search_indexed(
-            qplanes, planes, tiles, corr,
-            distance_type=dt, invert=invert, dim=dim, k=kk2,
-            tile_n=itile, recall_target=rt, query_affine=qaff,
-        )
-    # pq, over the CACHED transposed codes (IVFIndex._pq_codes_t)
-    from ..ops.pallas.pq_kernel import pq_search_indexed
-
-    (lut,) = eq
-    (codes_t,) = inner
-    return pq_search_indexed(
-        lut, codes_t, tiles, rowadd, corr,
-        k=kk2, precision=precision, tile_n=itile, recall_target=rt,
-    )
-
-
-def _indexed_tile(kind, s, method, scan, *, dp=None, allow_pq=True):
-    """Scalar-prefetch tile width for an indexed probed scan, or 0 when
-    the geometry/family can't take it. SQ has exact AND approx indexed
-    variants; BQ/PQ indexed scans are approx-selection only (the IVF
-    coarse mode). PQ under scan='auto' only engages at the FULL kernel
-    tile: measured on v5e a derated (tile_n=512) PQ indexed scan loses to
-    compact — extraction runs once per tile, so halving the tile doubles
-    it (PERF_NOTES 'Indexed-vs-compact policy sweep'); scan='indexed'
-    forces a derated tile. ``dp`` = padded bit-dim for BQ; ``allow_pq``
-    is off for callers without the transposed code layout (ShardedIVF)."""
-    from ..ops.pallas.sq_kernel import TILE_N as SQ_TILE
-
-    if kind == "sq":
-        if s % SQ_TILE:
-            return 0
-        # Widen up to the dense kernel's 2048 cap: per-grid-step costs
-        # dominate the indexed/dense gap (PERF_NOTES round-3 decomposition),
-        # so take the widest tile the bucket size divides into.
-        t = SQ_TILE
-        while t * 2 <= 2048 and s % (t * 2) == 0:
-            t *= 2
-        return t
-    if method != "approx":
-        return 0
-    if kind == "bq":
-        from ..ops.pallas.bq_kernel import indexed_tile_n
-
-        return indexed_tile_n(dp, s)
-    if not allow_pq:
-        return 0
-    from ..ops.pallas.ktile import SLOT
-    from ..ops.pallas.pq_kernel import TILE_N as PQ_TILE
-
-    t = PQ_TILE
-    while t > SLOT and s % t:
-        t //= 2
-    if t <= SLOT or s % t:
-        return 0
-    return 0 if scan == "auto" and t != PQ_TILE else t
+    if scan not in ("auto", "compact"):
+        raise ArgumentsError(f"unknown scan strategy {scan!r}")
 
 
 def _dedupe_select(sv, out_ids, nq, k, kk2):
@@ -759,7 +490,6 @@ class IVFIndex:
             slot_ids = np.where(self.bucket_ids >= 0, slot_ids, -1)
         self._slot_ids_dev = jnp.asarray(slot_ids)
         self._means_dev = jnp.asarray(self.bucket_means)
-        self._codes_t_cache = None  # lazy [Mpad, Npad] for indexed PQ
         if metadata.residual:
             self._init_residual()
         else:
@@ -782,7 +512,7 @@ class IVFIndex:
         DECODED norm, recomputed from the codes on device here (nothing
         extra to checkpoint; see ops/ivf.py sq_decoded_rowterm on why it
         must be the decoded norm, not the exact one) — folds into voff
-        (SQ) or the per-row kernel additive (PQ). Pad slots get NEG
+        (SQ) or the per-row additive (PQ). Pad slots get NEG
         there, masking them (their residuals are vs a foreign bucket's
         mean and would score garbage)."""
         a, rowcoef = _residual_coeffs(
@@ -812,7 +542,7 @@ class IVFIndex:
             # encode_query builds zero-centered SIGNED codes q^ = aq * Q,
             # so q.r^ = aq*ar*(Q.C) + off_r*sum(q) — no per-row cross
             # term at all. voff carries only s*|v^|^2 and the pad mask;
-            # the per-query multiplier A*aq*ar rides the kernel's traced
+            # the per-query multiplier A*aq*ar rides the scan's traced
             # multiplier column (_ResidualQueryU8.mult).
             meta = qz.metadata
             ve = np.zeros(np.asarray(qz.voffsets).shape[0], np.float32)
@@ -872,10 +602,9 @@ class IVFIndex:
     ) -> "IVFIndex":
         """Cluster + permute + inner-encode.
 
-        ``nlist`` / ``bucket_size`` default to ``auto_geometry`` (the
-        measured rules: S = the widest indexed-kernel tile the corpus
-        supports, nlist * S ~ count/3); pass either explicitly to pin
-        it (the other is still derived).
+        ``nlist`` / ``bucket_size`` default to ``auto_geometry``
+        (nlist * S ~ count/3); pass either explicitly to pin it (the
+        other is still derived).
 
         ``data`` must be a materialized [count, dim] array (the build
         permutes it cluster-major; streaming callables are the full-scan
@@ -890,22 +619,21 @@ class IVFIndex:
         span a far smaller ball than the data, so the same code budget
         spends its resolution where the ranking signal lives (the IVF-PQ
         recipe; no reference counterpart). The bucket term q . c_b is
-        restored in-kernel at search (see _ivf_search). Needs
-        bucket_size to be a multiple of the kernels' CORR_BLK (512).
+        restored at search (see _ivf_search). Needs bucket_size to be a
+        multiple of ``ops.ivf.RESIDUAL_ALIGN`` (512).
         Residual BQ keeps 1-bit residual SIGNS on the corpus side but
         scores them against the query's quantized VALUES (asymmetric;
         _ResidualQueryBQ) with beta = E|r_i| bridging the units — DOT
         only (the L2 expansion needs a per-slot additive the plane
         layout can't carry). L1 is excluded (no dot-expansion).
 
-        Residual-BQ regime (measured on hardware, PERF_NOTES
-        "Residual-BQ regime"): it lifts recall when the within-bucket
-        score spread exceeds the 1-bit estimator's noise floor
-        ~beta*|q| (clustered/unnormalized corpora: 0.02 -> 0.18 at
-        200k x 768). On unit-normalized corpora with isotropic
-        residuals the spread is ~|r|^2/sqrt(d), far below beta*|q|,
-        and residual-BQ is a wash (0.143 -> 0.127 at 500k x 768) —
-        use residual SQ/PQ there."""
+        Residual-BQ regime: it lifts recall when the within-bucket score
+        spread exceeds the 1-bit estimator's noise floor ~beta*|q|
+        (clustered/unnormalized corpora: recall 0.02 -> 0.18 at
+        200k x 768). On unit-normalized corpora with isotropic residuals
+        the spread is ~|r|^2/sqrt(d), far below beta*|q|, and residual-BQ
+        is a wash (recall 0.143 -> 0.127 at 500k x 768) — use residual
+        SQ/PQ there."""
         registry = _registry()
         if isinstance(quantizer, str):
             if quantizer not in registry:
@@ -944,8 +672,6 @@ class IVFIndex:
         if bucket_size < 1 or nlist < 1:
             raise ArgumentsError("nlist and bucket_size must be >= 1")
         if residual:
-            from ..ops.pallas.sq_kernel import CORR_BLK
-
             if params.distance_type == DistanceType.L1:
                 raise ArgumentsError(
                     "residual=True needs DOT or L2 (dot-expansion)"
@@ -959,14 +685,14 @@ class IVFIndex:
                     "(the L2 expansion needs a per-slot |v^|^2 additive, "
                     "which the 1-bit plane layout has no carrier for)"
                 )
-            if bucket_size % CORR_BLK:
+            if bucket_size % ivf_ops.RESIDUAL_ALIGN:
                 raise ArgumentsError(
                     f"residual=True needs bucket_size to be a multiple "
-                    f"of {CORR_BLK}, got {bucket_size}"
+                    f"of {ivf_ops.RESIDUAL_ALIGN}, got {bucket_size}"
                 )
             if kind == "bq":
-                # Measured regime rule (PERF_NOTES "Residual-BQ regime",
-                # BASELINE "Residual-BQ at 10M"): on unit-NORMALIZED
+                # Measured regime rule (recall on seeded corpora): on
+                # unit-NORMALIZED
                 # corpora the within-bucket score spread (~|r|^2/sqrt(d))
                 # sits below the asymmetric 1-bit estimator's noise floor
                 # (~beta*|q|), so residual-BQ LOSES recall vs plain signs
@@ -989,8 +715,7 @@ class IVFIndex:
                         "unit-normalized corpus: measured on this regime "
                         "residual-BQ REDUCES recall vs plain IVF-BQ "
                         "(10M x 768 normalized: coarse 0.330 -> 0.277, "
-                        "rescored 0.935 -> 0.918 at equal scan cost — "
-                        "PERF_NOTES 'Residual-BQ regime'). Keep "
+                        "rescored 0.935 -> 0.918 at equal scan cost). Keep "
                         "residual=False for BQ here and spend the win on "
                         "rescore depth R, or use residual SQ/PQ.",
                         stacklevel=2,
@@ -1073,7 +798,7 @@ class IVFIndex:
         # Residual index: fold the dot-expansion's query-side terms in
         # here (see _init_residual). A rescales, |q|^2 (L2 only) adds.
         # Each query's signed codes carry its OWN scale aq = max|q_i|/127
-        # (the kernels take a per-query multiplier column), so a query's
+        # (the scan takes a per-query multiplier column), so a query's
         # quantization — and its returned scores — never depend on which
         # other queries share the batch.
         a, rc = self._res_a, self._res_rowcoef
@@ -1097,31 +822,6 @@ class IVFIndex:
         eq = self.quantizer.encode_query(np.asarray(q))
         return q, _residual_query_pq(eq.lut, a)
 
-    def _pq_codes_t(self):
-        """Lazy TRANSPOSED code matrix [Mpad, Npad] for the indexed PQ
-        scan (the fused kernel streams codes corpus-on-lanes). One device
-        transpose, cached — doubles PQ code HBM while an indexed scan is
-        in use."""
-        if self._codes_t_cache is None:
-            from ..ops.pallas.pq_kernel import M_BLK
-            from ..ops.pallas.pq_kernel import TILE_N as PQ_TILE
-
-            qz = self.quantizer
-            if getattr(qz, "_codes_t", None) is not None:
-                # Transposed-first quantizer (capacity layout): its
-                # [Mpad, Npad] storage IS the scan layout — no second
-                # copy. Pad columns score 0 (zero LUT rows).
-                self._codes_t_cache = qz._codes_t
-                return self._codes_t_cache
-            codes = qz.codes[:, : qz.num_chunks]
-            n, m = codes.shape
-            npad = -(-n // PQ_TILE) * PQ_TILE
-            mpad = -(-m // M_BLK) * M_BLK
-            self._codes_t_cache = jnp.pad(
-                jnp.transpose(codes), ((0, mpad - m), (0, npad - n))
-            )
-        return self._codes_t_cache
-
     def _family_arrays(self, eq_inner) -> Tuple[tuple, tuple]:
         kind = self.metadata.kind
         qz = self.quantizer
@@ -1142,11 +842,11 @@ class IVFIndex:
                     (qz.planes,),
                 )
             return (eq_inner.planes,), (qz.planes,)
-        # PQ inner arrays resolve in top_k_device AFTER the scan-strategy
-        # decision: indexed wants the transposed layout, compact the
-        # row-major one, and touching the wrong property on a
-        # transposed-first quantizer would materialize a full-size copy.
-        return (eq_inner.lut,), None
+        # PQ scans whichever layout the quantizer holds: a transposed-first
+        # quantizer must not materialize its full row-major copy.
+        if qz._codes is None:
+            return (eq_inner.lut,), (qz._codes_t,)
+        return (eq_inner.lut,), (qz.codes,)
 
     def top_k_device(
         self,
@@ -1161,28 +861,23 @@ class IVFIndex:
         """Probe + probed-bucket scan + select, one jitted device dispatch
         (see ``_ivf_search``).
 
-        ``recall_target`` (approx mode, default 0.95) is the final merge's
-        recall/speed dial, forwarded to the kernels' partial-reduce select
-        (ops/pallas/ktile.py merge_tile_topk_all) — it prices only the
-        merge's own loss, on top of the probe loss and the extraction's
-        strided-collision loss.
-
         ``nprobe`` = per-query probe votes; ``nscan`` = batch-shared
         scanned buckets (default ``4 * nprobe``, capped at the bucket
         count — at Q=1 the union IS the query's own probes; wider batches
-        naturally widen it). ``method`` picks the scan's selection mode
-        ("exact" = value-exact in-kernel extraction over the scanned
-        buckets, "approx" = strided/partial-reduce). ``scan`` picks the
-        scan strategy: "indexed" streams the selected buckets in place
-        through a scalar-prefetch index map (SQ, bucket_size a multiple
-        of the kernel tile); "compact" gathers them into one contiguous
-        sub-corpus first; "auto" prefers indexed where available. Each
-        distinct (k, nprobe, nscan, method, scan) compiles once."""
+        naturally widen it). ``method`` ("exact" or "approx") and
+        ``recall_target`` are accepted for interface parity: selection is
+        exact either way (``ops.topk``). ``scan`` is
+        "auto" or "compact" (the same gathered scan); "indexed", an
+        in-place scan of the selected buckets, has no GPU implementation
+        yet (ROADMAP "Removed, worth writing again for Hopper") and
+        raises. Each distinct (k, nprobe, nscan, method) compiles once."""
         q, eq_inner = equery
         nb = self.metadata.nbuckets
         p = min(int(nprobe or self.metadata.nprobe), nb)
         if p < 1 or nb == 0:
             raise ArgumentsError("empty index or nprobe < 1")
+        _check_scan(scan)
+        _check_method(method)
         if nscan is None:
             nscan = self.metadata.nscan
         u = min(int(nscan) if nscan else 4 * p, nb)
@@ -1191,90 +886,8 @@ class IVFIndex:
             max(2 * int(k), int(k) * self._max_dup),
             u * self.metadata.bucket_size,
         )
-        from ..ops import dispatch
-        from ..ops.pallas.ktile import APPROX_K_MAX, FUSED_K_MAX
-
-        cap = APPROX_K_MAX if method == "approx" else FUSED_K_MAX
-        # Resolve the PQ LUT precision up front (it feeds the fused-path
-        # gate below AND travels as an explicit static jit arg so flipping
-        # QTPU_PQ_LUT between calls retraces — see _lut_precision;
-        # residual indexes default to the two-word bf16x2 split).
-        precision = None
-        if self.metadata.kind == "pq":
-            from ..ops.pallas.pq_kernel import _lut_precision
-
-            precision = _lut_precision(residual=self.metadata.residual)
-        use_fused = bool(
-            dispatch.use_pallas()
-            and kk2 <= cap
-            and not (
-                self.metadata.kind == "sq"
-                and self.params.distance_type == DistanceType.L1
-            )
-            # Exact residual-PQ rides the f32-keyed class extraction,
-            # which absorbs the residual additives pre-extraction; the
-            # int8 packed chains can't — an explicit QTPU_PQ_LUT=int8
-            # sends exact residual-PQ to the XLA score + top_k path.
-            and not (
-                self.metadata.residual
-                and self.metadata.kind == "pq"
-                and method != "approx"
-                and precision == "int8"
-            )
-        )
-        if scan not in ("auto", "indexed", "compact"):
-            raise ArgumentsError(f"unknown scan strategy {scan!r}")
         kind = self.metadata.kind
-        s = self.metadata.bucket_size
-        if not use_fused and u * s >= 1_000_000:
-            # Large unfused scans materialize the [Q, U*S] score matrix
-            # (VERDICT r3 weak #3) — never silently at serving scale.
-            from ..utils.fallback import warn_unfused
-
-            warn_unfused("IVF", u * s, k, method)
-        itile = _indexed_tile(
-            kind, s, method, scan,
-            dp=(
-                self.quantizer.planes.shape[0] * 32
-                if kind == "bq" else None
-            ),
-        )
-        indexed = bool(scan != "compact" and use_fused and itile)
-        if indexed and kind == "pq" and scan == "auto":
-            # The PQ indexed scan reads the TRANSPOSED code layout. When
-            # the quantizer already stores it (from_transposed — the
-            # capacity layout) or the cache exists, indexed is free;
-            # otherwise building the second layout doubles resident code
-            # bytes, which capacity-scale corpora can't afford (100M x
-            # 96 B -> 22+ GB OOMs one chip), so "auto" only builds it
-            # within a budget. Explicit scan="indexed" still overrides.
-            qz = self.quantizer
-            have_t = (
-                self._codes_t_cache is not None
-                or getattr(qz, "_codes_t", None) is not None
-            )
-            if not have_t:
-                t_bytes = qz.codes.shape[0] * qz.codes.shape[1]
-                indexed = t_bytes <= _PQ_T_BYTES_CAP
-        if scan == "indexed" and not indexed:
-            raise ArgumentsError(
-                "scan='indexed' needs the fused kernel path, bucket_size "
-                "divisible by the family's kernel tile, and (for BQ/PQ) "
-                "method='approx'"
-            )
         eq, inner = self._family_arrays(eq_inner)
-        if kind == "pq":
-            # Full padded code matrix, NOT a column slice: at capacity
-            # scale a [N, :m] slice materializes a second near-full-size
-            # copy per call. The kernels zero-pad the LUT to the padded
-            # chunk count, so extra columns score 0; the XLA compact
-            # path slices the (small) gathered sub-corpus instead.
-            inner = (
-                (self._pq_codes_t(),) if indexed
-                else (self.quantizer.codes,)
-            )
-        if not use_fused:
-            precision = None  # XLA path scores the raw f32 LUT
         resid = None
         if self.metadata.residual:
             resid = (
@@ -1284,12 +897,10 @@ class IVFIndex:
             )
         return _ivf_search(
             q, eq, self._means_dev, self._slot_ids_dev, inner, resid,
-            kind=kind, k=int(k), p=p, u=u, method=method,
+            kind=kind, k=int(k), p=p, u=u,
             dt=self.params.distance_type, invert=self.params.invert,
-            s=s, dim=self.params.dim,
-            use_fused=use_fused, indexed=indexed, kk2=kk2, itile=itile,
-            precision=precision,
-            rt=(0.95 if recall_target is None else float(recall_target)),
+            s=self.metadata.bucket_size, dim=self.params.dim, kk2=kk2,
+            pq_transposed=(kind == "pq" and self.quantizer._codes is None),
         )
 
     def top_k(

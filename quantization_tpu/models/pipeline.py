@@ -23,10 +23,10 @@ from ..core.types import ArgumentsError
 class ExactRescorer:
     """f32 rescoring stage backed by the original vectors.
 
-    ``host_resident=False`` (default) keeps the corpus in HBM — right for
-    corpora that fit (1M x 768 f32 is ~3GB). ``host_resident=True`` keeps
-    it on the host (accepts a numpy array OR an np.memmap, so a 10M x 1536
-    corpus — 61GB, beyond one chip's HBM — rescs from disk-backed memory):
+    ``host_resident=False`` (default) keeps the corpus in device memory —
+    right for corpora that fit (1M x 768 f32 is ~3GB). ``host_resident=True``
+    keeps it on the host (accepts a numpy array OR an np.memmap, so a
+    10M x 1536 corpus — 61GB — rescores from disk-backed memory):
     per call only the gathered [Q, R, D] candidate rows cross the link.
     For multi-chip HBM residency use
     ``parallel.sharded.ShardedExactRescorer`` instead."""
@@ -108,12 +108,10 @@ class TwoStageIndex:
         oversampling: float = 4.0,
         coarse_method: str = "approx",
     ):
-        """``coarse_method`` defaults to the TPU partial-reduce top-k
-        (approx_max_k): the coarse stage feeds an oversampled candidate set
-        into exact rescoring, so its own selection can be approximate —
-        measured 3x the exact coarse selection at 1M x 768 with no
-        end-to-end recall change. Pass "exact" for strict two-stage
-        equivalence."""
+        """``coarse_method`` is the coarse stage's selection method: the
+        coarse stage feeds an oversampled candidate set into exact
+        rescoring, so its own selection may be approximate. Both methods
+        select exactly on this card (ops/topk.py)."""
         if oversampling < 1.0:
             raise ArgumentsError("oversampling must be >= 1")
         self.coarse = coarse
@@ -136,10 +134,9 @@ class TwoStageIndex:
         eq_coarse, eq_fine = equery
         r = int(np.ceil(k * self.oversampling))
         r = min(r, self.coarse.count if self.coarse.count else r)
-        # Route through the coarse quantizer's own top_k_device: on TPU that
-        # is the fused search kernel (no [Q, N] score matrix at the coarse
-        # stage, which scans the whole corpus) for small k, or
-        # score + (approx_)top_k beyond FUSED_K_MAX.
+        # Route through the coarse quantizer's own top_k_device, which
+        # blocks the corpus past ops.topk.BLOCK_ROWS (bounded [Q, block]
+        # score memory at the coarse stage, which scans the whole corpus).
         _, cand = self.coarse.top_k_device(
             eq_coarse, r, method=method or self.coarse_method,
             recall_target=recall_target,

@@ -1,4 +1,4 @@
-"""Product quantizer — the TPU-native EncodedVectorsPQ.
+"""Product quantizer — the batched EncodedVectorsPQ.
 
 Re-design of quantization/src/encoded_vectors_pq.rs. Training is one batched
 k-means over every chunk at once (ops/kmeans.py) instead of a per-chunk rayon
@@ -36,8 +36,8 @@ from ..core.types import (
     VectorParameters,
     check_stop,
 )
-from ..ops import dispatch
 from ..ops import pq as pq_ops
+from ..ops import topk as topk_ops
 from ..ops.kmeans import kmeans_batched
 from ..ops.quantile import sample_rows
 
@@ -101,8 +101,7 @@ class ProductQuantizer(EncodedVectors):
 
     def __init__(self, codes: jax.Array, metadata: PQMetadata):
         # codes uint8 [Npad, Mpad]: rows >= count are zero, chunk columns
-        # >= m are zero (their LUT rows are zero in the kernel, so padded
-        # chunks contribute nothing).
+        # >= m are zero and never scored (scans slice to m chunks).
         npad, mpad = self._pads(metadata)
         if codes.shape[0] < npad or codes.shape[1] < mpad:
             codes = jnp.pad(
@@ -121,13 +120,10 @@ class ProductQuantizer(EncodedVectors):
         cls, codes_t: jax.Array, metadata: PQMetadata
     ) -> "ProductQuantizer":
         """Construct with the TRANSPOSED [Mpad, Npad] layout as PRIMARY
-        storage. TPU u8 tiling lane-pads a row-major [N, m] matrix to
-        128-byte rows (m=96 -> 14.9 GB resident at 100M instead of
-        11.2), while [m, N] pads nothing and IS the Pallas scan layout —
-        so capacity-scale corpora should append codes chunk-major and
-        build the quantizer here. Row-major ``codes`` materializes
-        lazily if a consumer asks (save, score_internal, the IVF
-        compact scan)."""
+        storage (chunk-major, as the sharded engines append codes).
+        Row-major ``codes`` materializes lazily if a consumer asks (save,
+        score_internal, a full scan); the IVF scan gathers its probed
+        columns from this layout directly."""
         npad, mpad = cls._pads(metadata)
         if codes_t.shape[0] < mpad or codes_t.shape[1] < npad:
             codes_t = jnp.pad(
@@ -145,11 +141,12 @@ class ProductQuantizer(EncodedVectors):
 
     @staticmethod
     def _pads(metadata: PQMetadata) -> tuple:
-        from ..ops.pallas.pq_kernel import M_BLK, TILE_N
-
         count = metadata.vector_parameters.count
         m = len(metadata.vector_division)
-        return count + (-count) % TILE_N, m + (-m) % M_BLK
+        return (
+            count + (-count) % pq_ops.ROW_ALIGN,
+            m + (-m) % pq_ops.CHUNK_ALIGN,
+        )
 
     def _init_common(self, metadata: PQMetadata) -> None:
         self.metadata = metadata
@@ -173,20 +170,16 @@ class ProductQuantizer(EncodedVectors):
         """Row-major [Npad, Mpad] codes; for transposed-first quantizers
         (``from_transposed``) this re-materializes by device transpose on
         first use — a full-size allocation capacity-scale callers should
-        avoid (the IVF indexed scan never needs it)."""
+        avoid (the IVF scan never needs it)."""
         if self._codes is None:
             self._codes = jnp.transpose(self._codes_t)
         return self._codes
 
     @property
     def codes_t(self) -> jax.Array:
-        """Transposed scoring copy [Mpad, Npad], built on FIRST full-scan
-        use and cached: Mosaic needs 128-multiple lane blocks, so the
-        Pallas scan kernel reads chunk rows on sublanes and the corpus on
-        lanes. Lazy because it doubles the resident code bytes — at
-        capacity scale (100M x 96 B = 11 GB) holding both layouts is the
-        difference between fitting one chip's HBM and OOM; consumers that
-        never full-scan (the IVF compact path) never pay it."""
+        """Transposed copy [Mpad, Npad], built on first use and cached
+        (the sharded engine's layout). Lazy because it doubles the
+        resident code bytes."""
         if self._codes_t is None:
             self._codes_t = jnp.transpose(self._codes)
         return self._codes_t
@@ -206,9 +199,9 @@ class ProductQuantizer(EncodedVectors):
     ) -> "ProductQuantizer":
         """k-means train + batched encode (encoded_vectors_pq.rs:56-107).
 
-        ``bits=4`` trains 16 centroids per chunk (Quick-ADC style, half the
-        code bytes and 16x less scan compute on the MXU, at a recall cost —
-        use smaller chunk_size to compensate). 8 is reference parity.
+        ``bits=4`` trains 16 centroids per chunk (Quick-ADC style, a 16x
+        smaller LUT per chunk, at a recall cost — use smaller chunk_size
+        to compensate). 8 is reference parity.
 
         ``rotation`` enables OPQ (ops/opq.py — not in the reference):
         ``"opq"`` learns an orthogonal rotation on the training sample
@@ -376,13 +369,6 @@ class ProductQuantizer(EncodedVectors):
 
     # ------------------------------------------------------------------ score
     def score_batch(self, equery: EncodedQueryPQ) -> jax.Array:
-        if dispatch.use_pallas() and self.count:
-            from ..ops.pallas.pq_kernel import _lut_precision, pq_scores_pallas
-
-            return pq_scores_pallas(
-                equery.lut, self.codes_t, n_valid=self.count,
-                precision=_lut_precision(),
-            )
         return pq_ops.score_lut_xla(
             equery.lut, self.codes[: self.count, : self.num_chunks]
         )
@@ -391,44 +377,10 @@ class ProductQuantizer(EncodedVectors):
         self, equery: EncodedQueryPQ, k: int, method: str = "exact",
         recall_target: Optional[float] = None,
     ):
-        """Fused PQ search on TPU: one-hot MXU accumulation in VMEM scratch
-        + in-tile top-k — no [Q, N] score matrix.
-
-        ``method="exact"`` means exact *selection*; the scores selected over
-        are the fused kernel's LUT scores, which by default ride the int8
-        MXU path (QTPU_PQ_LUT=int8) and so differ from the f32 XLA fallback
-        by one LUT quantization step (~dim*0.001, far inside the reference's
-        dim*0.05 bound). Set QTPU_PQ_LUT=bf16 for near-f32 LUT scores; the
-        precision is resolved HERE (static jit arg), so flipping the env var
-        takes effect on the next call."""
-        from ..ops.pallas.ktile import APPROX_K_MAX, FUSED_K_MAX
-
-        fused_ok = (
-            (k <= FUSED_K_MAX) if method == "exact"
-            else (k <= APPROX_K_MAX)
-        )
-        if dispatch.use_pallas() and self.count and fused_ok:
-            from ..ops.pallas.pq_kernel import _lut_precision, pq_search_pallas
-
-            return pq_search_pallas(
-                equery.lut,
-                self.codes_t,
-                n_valid=self.count,
-                k=k,
-                mode=method,
-                precision=_lut_precision(),
-                recall_target=(
-                    0.95 if recall_target is None else float(recall_target)
-                ),
-            )
-        from ..ops.topk import BLOCK_ROWS, blocked_topk
-
-        if self.count > BLOCK_ROWS:
-            # Exact at any k with [Q, block] peak memory — never a silent
-            # [Q, N] score-matrix allocation at 10M scale.
-            from ..utils.fallback import warn_unfused
-
-            warn_unfused("PQ", self.count, k, method)
+        """Score over the f32 LUT + select; beyond ``ops.topk.BLOCK_ROWS``
+        rows block by block (exact at any k, [Q, block] peak memory).
+        ``recall_target`` is accepted for interface parity and unused."""
+        if self.count > topk_ops.BLOCK_ROWS:
             sub = self.codes[:, : self.num_chunks]
 
             def score_block(b0, b1):
@@ -436,7 +388,7 @@ class ProductQuantizer(EncodedVectors):
                     equery.lut, jax.lax.slice_in_dim(sub, b0, b1, axis=0)
                 )
 
-            return blocked_topk(score_block, self.count, k, method)
+            return topk_ops.blocked_topk(score_block, self.count, k, method)
         return super().top_k_device(equery, k, method=method)
 
     def score_points(self, equery: EncodedQueryPQ, ids) -> jax.Array:
@@ -476,7 +428,7 @@ class ProductQuantizer(EncodedVectors):
     def dump_to_image(self, data: np.ndarray, prefix: str = "kmeans") -> list:
         """Debug visualization: per-chunk scatter of the first two chunk
         dimensions, colored by assigned centroid, centroids in red — the
-        TPU port of the reference's `dump_image` feature
+        port of the reference's `dump_image` feature
         (encoded_vectors_pq.rs:344-403). Returns the written paths."""
         from PIL import Image
 

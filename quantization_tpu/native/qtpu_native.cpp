@@ -1,11 +1,12 @@
 // Native host-side ingestion helpers for quantization_tpu.
 //
 // The reference implements its hot scoring loops in native code
-// (quantization/cpp/{sse,avx2,neon}.c); on TPU those live in Pallas kernels
-// (quantization_tpu/ops/pallas/). What remains host-side — streaming
-// ingestion: affine u8 quantization with per-vector correction terms, sign
+// (quantization/cpp/{sse,avx2,neon}.c); here scoring runs on the device
+// (quantization_tpu/ops/). What remains host-side — streaming ingestion:
+// affine u8 quantization with per-vector correction terms, sign
 // bit-packing, and calibration scans — is implemented here so corpora larger
-// than HBM can be encoded at memory bandwidth without burning device cycles.
+// than device memory can be encoded at memory bandwidth without burning
+// device cycles.
 //
 // Exposed as a plain C ABI consumed via ctypes (no pybind11 dependency).
 // Build: g++ -O3 -march=native -shared -fPIC (see loader.py).

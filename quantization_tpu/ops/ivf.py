@@ -3,12 +3,11 @@ bucket-major, and scan only the buckets nearest each query.
 
 No reference counterpart: qdrant/quantization is a full-scan scoring crate
 (its consumer runs graph search outside the crate, see SURVEY.md §0). This
-extension exists because the fused full scans are corpus-bandwidth/compute
-bound — at 10M x 768 the PQ m=96 scan costs 355 ms/batch no matter how few
-neighbors a query actually needs — and an inverted file turns that into
-work proportional to the probed fraction.
+extension exists because a full scan costs the whole corpus's bytes and
+operations no matter how few neighbors a query actually needs, and an
+inverted file turns that into work proportional to the probed fraction.
 
-TPU-native formulation (vs the CPU IVF idiom of per-list pointer chasing):
+Batch-first formulation (vs the CPU IVF idiom of per-list pointer chasing):
   * FIXED-SIZE buckets: each k-means cluster's run is split into chunks of
     exactly ``bucket_size`` rows, so every probe is a static-shape [S]
     slice — no ragged lists, no dynamic shapes under jit.
@@ -47,6 +46,10 @@ IVF_SAMPLE_CAP_BIG = 4_194_304
 ASSIGN_BLOCK = 65_536  # rows per device assignment call
 # Cap on any [rows, centers] f32 score transient (assignment + training).
 _SCORES_BYTES_CAP = 1 << 31
+# Residual indexes keep bucket_size a multiple of this (the removed
+# kernels' correction-block width; the XLA scan does not need it, and
+# lifting it is ROADMAP Design 4).
+RESIDUAL_ALIGN = 512
 
 
 def sample_cap(nlist: int) -> int:
@@ -395,8 +398,8 @@ def pq_decoded_rowterm(
     s = bucket_size
     m = len(division)
     # HIGHEST: these terms are data-scale and feed the per-row residual
-    # additive; TPU's default one-bf16-pass f32 dot (~2^-9) would inject
-    # rowadd noise rivaling residual-scale score deltas.
+    # additive; a reduced-precision f32 dot would inject rowadd noise
+    # rivaling residual-scale score deltas.
     hp = jax.lax.Precision.HIGHEST
     mr = means if rot is None else jnp.matmul(means, rot, precision=hp)
     mean_norm = jnp.sum(means * means, axis=1)  # [B]

@@ -4,13 +4,13 @@ CVPR 2013). The reference has plain PQ only (encoded_vectors_pq.rs); this
 extension exists because on realistic embedding distributions — low
 effective rank, correlated coordinates — plain PQ's independent per-chunk
 codebooks waste bits modeling cross-chunk correlation, and a single
-orthogonal rotation recovers most of that loss (measured on the realistic
-10M anchor in BASELINE.md). Scoring is untouched: codes and LUTs live in
+orthogonal rotation recovers most of that loss (recall measured on a
+seeded realistic 10M corpus). Scoring is untouched: codes and LUTs live in
 the rotated space, dot and L2 are rotation-invariant, so search cost is
 identical to plain PQ; L1 is NOT preserved by rotation and is rejected at
 the model layer.
 
-TPU-native formulation:
+Batched formulation:
   * parametric init (OPQ-P): eigen-decompose the second-moment matrix and
     greedily pack eigenvectors into chunks balancing the per-chunk
     log-variance product — the known-good init for non-parametric OPQ.

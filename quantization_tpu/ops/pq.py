@@ -1,7 +1,7 @@
 """Product-quantization ops: chunking, batched nearest-centroid encode,
 LUT build, and LUT scoring.
 
-TPU-native re-design of quantization/src/encoded_vectors_pq.rs. The reference
+Batched re-design of quantization/src/encoded_vectors_pq.rs. The reference
 encodes vectors on a condvar-ordered thread ring (encoded_vectors_pq.rs:168-226)
 and scores with an SSE LUT-gather loop (rs:405-440); here encode is a batched
 argmin over a distance tensor and scoring sums per-chunk LUT gathers on
@@ -25,6 +25,11 @@ CENTROIDS_COUNT4 = 16  # 4-bit (Quick-ADC style) extension — not in reference
 KMEANS_SAMPLE_SIZE = 10_000  # rs:22
 KMEANS_MAX_ITERATIONS = 100  # rs:23
 KMEANS_ACCURACY = 1e-5  # rs:24
+# Device layout, kept from the removed kernels' tiling so shapes are
+# unchanged (a GPU-shaped layout is ROADMAP Design 4): corpus rows pad to
+# ROW_ALIGN, the chunk axis to CHUNK_ALIGN.
+ROW_ALIGN = 1024
+CHUNK_ALIGN = 16
 
 
 def get_vector_division(dim: int, chunk_size: int) -> List[Tuple[int, int]]:
@@ -129,11 +134,11 @@ def build_lut(
     sub-vector to each centroid sub-vector (encoded_vectors_pq.rs:525-547),
     negated under ``invert``.
 
-    HIGHEST matmul precision: TPU's default f32 dot is a single bf16
-    pass (~2^-9 relative), which on data-scale entries perturbs each LUT
-    cell by ~0.1 — summed over m chunks that rivals residual-scale score
-    deltas. The LUT build is a ~Q*m*k*dmax flop drop next to any scan,
-    so true f32 here is free."""
+    HIGHEST matmul precision: a default-precision f32 dot may round its
+    inputs (TF32 keeps about three decimal digits), which on data-scale
+    entries perturbs each LUT cell — summed over m chunks that rivals
+    residual-scale score deltas. The LUT build is a ~Q*m*k*dmax flop drop
+    next to any scan, so true f32 here is free."""
     hp = jax.lax.Precision.HIGHEST
     if distance_type == DistanceType.DOT:
         lut = jnp.einsum(
@@ -160,8 +165,8 @@ def build_lut(
 def score_lut_xla(lut: jax.Array, codes: jax.Array) -> jax.Array:
     """[Q, N] scores = sum over chunks of lut[q, m, codes[n, m]].
 
-    XLA gather fallback (the Pallas one-hot MXU kernel is the fast path) —
-    scans chunks, gathering a [Q, N] slice per chunk.
+    Scans chunks, gathering a [Q, N] slice per chunk into an f32
+    accumulator.
     """
     codes_mn = codes.T.astype(jnp.int32)  # [m, N]
 

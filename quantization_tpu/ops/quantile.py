@@ -1,6 +1,6 @@
 """Calibration: global min/max scan and quantile-interval estimation.
 
-TPU-native equivalent of quantization/src/quantile.rs. The reference samples
+Host-side equivalent of quantization/src/quantile.rs. The reference samples
 up to 100k vectors via a random permutation and cuts both tails with two
 ``select_nth_unstable`` passes (quantile.rs:21-71); we sample with numpy and
 cut with ``np.partition`` — same estimator, same guard conditions, same quirk

@@ -1,20 +1,20 @@
 """Scalar (u8) quantization ops: affine codec + batched integer scoring.
 
-TPU-native re-design of the reference SQ codec/kernels
+Batched re-design of the reference SQ codec/kernels
 (quantization/src/encoded_vectors_u8.rs + cpp/{avx2,sse,neon}.c):
 
   * codes live in [0, 127] (alpha = (max-min)/127, offset = min —
     encoded_vectors_u8.rs:228-232), so they fit **int8** and dot products run
-    as int8 x int8 -> int32 on the MXU with exact integer accumulation — the
-    TPU replacement for the `maddubs` AVX2 kernel (cpp/avx2.c:25-63).
+    as one int8 x int8 -> int32 matmul with exact integer accumulation — the
+    batched replacement for the `maddubs` AVX2 kernel (cpp/avx2.c:25-63).
   * layout is SoA: codes int8[N, D_pad] + per-vector f32 correction offsets[N]
     (vs the reference's per-row inline f32 prefix, encoded_vectors_u8.rs:78-116).
   * D is padded in two steps: pad_code to the reference's 16-aligned
     actual_dim (same placeholder semantics as encoded_vectors_u8.rs:84-93 —
     the pad encodes real value 0.0 for DOT and `offset` i.e. code 0 for
     L1/L2, so pads cancel exactly in scores and voffsets match the
-    reference bit-for-bit), then zeros to the TPU lane width 128 (zero
-    lanes on both operands contribute exactly 0 to every kernel and sum).
+    reference bit-for-bit), then zeros to a multiple of 128 columns (zero
+    columns on both operands contribute exactly 0 to every kernel and sum).
 
 Score contract (encoded_vectors_u8.rs:145-158):
     score = multiplier * int_kernel(Q, V) + query_offset + vector_offset
@@ -35,7 +35,11 @@ import numpy as np
 from ..core.types import DistanceType
 
 ALIGNMENT = 16  # reference row alignment (encoded_vectors_u8.rs:12)
-LANE = 128  # TPU lane width: in-memory code matrices are padded to this
+# In-memory layout, kept from the removed kernels' tiling so saved
+# files and shapes are unchanged (a GPU-shaped layout is ROADMAP Design 4):
+# code columns pad to a multiple of LANE, corpus rows to ROW_ALIGN.
+LANE = 128
+ROW_ALIGN = 512
 CODE_MAX = 127.0
 
 
@@ -134,11 +138,11 @@ def quantize_batch(
 
     Implements the per-vector hot loop of encoded_vectors_u8.rs:73-118 as one
     fused device op: quantize, pad with ``pad_code`` to the reference's
-    16-aligned ``dpad``, zero-pad to the TPU lane width ``lane``, and compute
-    the per-vector correction term (encoded_vectors_u8.rs:94-109) over the
-    dpad width exactly as the reference does — the zero lanes beyond dpad
-    contribute 0 to every sum, so voffsets match the reference bit-for-bit
-    while the in-memory matrix stays MXU-tileable.
+    16-aligned ``dpad``, zero-pad to ``lane`` columns, and compute the
+    per-vector correction term (encoded_vectors_u8.rs:94-109) over the
+    dpad width exactly as the reference does — the zero columns beyond
+    dpad contribute 0 to every sum, so voffsets match the reference
+    bit-for-bit.
     """
     b, dim = x.shape
     if lane is None:
@@ -209,13 +213,15 @@ def encode_query_batch(
 
 
 # ---------------------------------------------------------------------------
-# Integer kernels (XLA path). The Pallas fast path lives in ops/pallas/.
+# Integer kernels.
 # ---------------------------------------------------------------------------
 
 
 def int_dot(qcodes: jax.Array, codes: jax.Array) -> jax.Array:
-    """[Q, N] exact int32 dot between int8 code matrices — the MXU form of
-    impl_score_dot_avx (cpp/avx2.c:25-63)."""
+    """[Q, N] exact int32 dot between int8 code matrices — the matmul form
+    of impl_score_dot_avx (cpp/avx2.c:25-63). An s8 x s8 -> s32 dot_general
+    accumulates in integers, so it is exact at any D (TF32 or an f32
+    upcast would round sums past 2^24)."""
     return jax.lax.dot_general(
         qcodes,
         codes,
@@ -225,8 +231,8 @@ def int_dot(qcodes: jax.Array, codes: jax.Array) -> jax.Array:
 
 
 def int_l1(qcodes: jax.Array, codes: jax.Array, tile: int = 2048) -> jax.Array:
-    """[Q, N] exact int32 sum-of-absolute-differences, tiled over N — the VPU
-    form of impl_score_l1_avx (cpp/avx2.c:65-122).
+    """[Q, N] exact int32 sum-of-absolute-differences, tiled over N — the
+    elementwise form of impl_score_l1_avx (cpp/avx2.c:65-122).
 
     Tiling bounds peak memory at Q * tile * D without materializing
     [Q, N, D].

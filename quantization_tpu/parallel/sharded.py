@@ -1,12 +1,12 @@
-"""Sharded corpus scoring over a TPU mesh — all three quantizers.
+"""Sharded corpus scoring over a device mesh — all three quantizers.
 
 The reference's entire parallelism surface is intra-process rayon threading
 (SURVEY.md §2); its scaling axis is corpus size, sharded by the caller. Here
 sharding is first-class: the code matrix is sharded over the mesh's ``shard``
-axis (the points axis), every chip scores its shard with one quantized
+axis (the points axis), every device scores its shard with one quantized
 matmul/popcount pass and computes a *local* top-k, and the only collective is
 an ``all_gather`` of (k scores, k global indices) per shard followed by a
-final merge — scores ride ICI, never the host.
+final merge — scores ride the device interconnect, never the host.
 
 Construction paths:
   * wrap an already-encoded single-device quantizer (re-lays its arrays
@@ -14,7 +14,7 @@ Construction paths:
   * ``ShardedX.encode(data, params, mesh=...)`` — streaming sharded-native
     ingestion: each host batch is quantized and committed straight into
     per-shard device buffers, so the corpus codes NEVER materialize on one
-    chip (the TPU equivalent of the reference's injectable storage seam,
+    device (the counterpart of the reference's injectable storage seam,
     encoded_storage.rs:7-25);
   * ``ShardedX.load(...)`` — reads the reference two-file format shard by
     shard (each shard's slice goes straight to its device).
@@ -55,7 +55,6 @@ from ..models.sq import (
     calibrate_sq,
 )
 from ..ops import bq as bq_ops
-from ..ops import dispatch
 from ..ops import pq as pq_ops
 from ..ops import sq as sq_ops
 from ..utils.device_store import DeviceAppender
@@ -95,9 +94,9 @@ def gathered_topk_merge(
     axis: str,
     k: int,
 ) -> Tuple[jax.Array, jax.Array]:
-    """Cross-shard tail: all-gather k rows per shard over ICI, exact merge.
-    The only collective of a sharded search — [shards, Q, k] scores ride
-    ICI, never the host."""
+    """Cross-shard tail: all-gather k rows per shard, exact merge. The only
+    collective of a sharded search — [shards, Q, k] scores ride the device
+    interconnect, never the host."""
     s_all = jax.lax.all_gather(s, axis, axis=1, tiled=True)
     gi_all = jax.lax.all_gather(gi, axis, axis=1, tiled=True)
     s_out, pos = jax.lax.top_k(s_all, min(k, s_all.shape[1]))
@@ -114,16 +113,11 @@ def local_topk_merge(
     axis: str,
     k: int,
     count: int,
-    method: str = "exact",
-    recall_target: float = 0.95,
 ) -> Tuple[jax.Array, jax.Array]:
     """Shared tail of every sharded scorer: mask shard padding, local top-k,
-    all-gather k rows per shard over ICI, merge. Replaces the reference
-    caller's point loop + heap (ann_benchmark_data.rs:151-166).
-
-    ``method="approx"`` uses the TPU partial-reduce top-k for the *local*
-    selection (the cross-shard merge is always exact over the gathered
-    candidates)."""
+    all-gather k rows per shard, merge. Replaces the reference caller's
+    point loop + heap (ann_benchmark_data.rs:151-166). Selection is exact
+    for every ``method`` (ops/topk.py)."""
     n_local = scores.shape[1]
     shard_idx = jax.lax.axis_index(axis)
     gidx = jax.lax.broadcasted_iota(jnp.int32, scores.shape, 1) + (
@@ -131,11 +125,7 @@ def local_topk_merge(
     )
     scores = jnp.where(gidx < count, scores, NEG_INF)
     kk = min(k, n_local)
-    if method == "approx":
-        s, i = jax.lax.approx_max_k(scores, kk, recall_target=recall_target)
-        i = i.astype(jnp.int32)
-    else:
-        s, i = jax.lax.top_k(scores, kk)
+    s, i = jax.lax.top_k(scores, kk)
     gi = jnp.take_along_axis(gidx, i, axis=1)
     return gathered_topk_merge(s, gi, axis, k)
 
@@ -211,8 +201,8 @@ class _ShardedBase:
 
     def _shard_dim(self, n: int, tile: int = 1) -> int:
         """Pad the corpus axis so every shard is a multiple of ``tile``
-        (the per-shard Pallas kernels need tile-aligned local slices; the
-        padding is masked out by ``count`` in local_topk_merge)."""
+        (the layout's row alignment; the padding is masked out by
+        ``count`` in local_topk_merge)."""
         step = self.n_shards * tile
         return max(n + (-n) % step, step)
 
@@ -248,7 +238,7 @@ class _ShardedBase:
 
 
 class ShardedScalarQuantizer(_ShardedBase):
-    """SQ corpus sharded over the mesh: codes int8[N/s, D] per chip."""
+    """SQ corpus sharded over the mesh: codes int8[N/s, D] per device."""
 
     def __init__(
         self,
@@ -257,9 +247,7 @@ class ShardedScalarQuantizer(_ShardedBase):
         axis: str = "shard",
     ):
         super().__init__(quantizer, mesh, axis)
-        from ..ops.pallas.sq_kernel import TILE_N as SQ_TILE
-
-        n_pad = self._shard_dim(self.count, SQ_TILE)
+        n_pad = self._shard_dim(self.count, sq_ops.ROW_ALIGN)
         codes = _pad_rows(np.asarray(quantizer.codes)[: self.count], n_pad)
         voff = _pad_rows(np.asarray(quantizer.voffsets)[: self.count], n_pad)
         self.codes = jax.device_put(
@@ -297,7 +285,6 @@ class ShardedScalarQuantizer(_ShardedBase):
         checked between batches (≙ stop_condition,
         encoded_vectors_u8.rs:74)."""
         from ..core.interface import iter_batches
-        from ..ops.pallas.sq_kernel import TILE_N as SQ_TILE
 
         mesh = mesh if mesh is not None else make_mesh()
         actual = sq_ops.actual_dim(params.dim)
@@ -310,7 +297,7 @@ class ShardedScalarQuantizer(_ShardedBase):
             batches, params, quantile, stop_condition, seed
         ) if params.count else (0.0, 0.0)
 
-        npad = cls._shard_dim_for(mesh, axis, params.count, SQ_TILE)
+        npad = cls._shard_dim_for(mesh, axis, params.count, sq_ops.ROW_ALIGN)
         codes_app = DeviceAppender(
             (npad, lane), jnp.int8,
             sharding=NamedSharding(mesh, P(axis, None)),
@@ -391,10 +378,6 @@ class ShardedScalarQuantizer(_ShardedBase):
             k=k,
             count=self.count,
             distance_type=self.params.distance_type,
-            method=method,
-            recall_target=(
-                0.95 if recall_target is None else float(recall_target)
-            ),
         )
 
     def score_candidates(self, equery: EncodedQueryU8, cand) -> jax.Array:
@@ -490,8 +473,6 @@ class ShardedScalarQuantizer(_ShardedBase):
         import json
         import os
 
-        from ..ops.pallas.sq_kernel import TILE_N as SQ_TILE
-
         mesh = mesh if mesh is not None else make_mesh()
         try:
             with open(meta_path) as f:
@@ -508,7 +489,7 @@ class ShardedScalarQuantizer(_ShardedBase):
                 f"{expected} ({n} rows x {row_size} bytes)"
             )
         lane = meta.actual_dim + (-meta.actual_dim) % sq_ops.LANE
-        npad = cls._shard_dim_for(mesh, axis, n, SQ_TILE)
+        npad = cls._shard_dim_for(mesh, axis, n, sq_ops.ROW_ALIGN)
         mm = (
             np.memmap(data_path, np.uint8, "r").reshape(n, row_size)
             if n
@@ -547,75 +528,21 @@ class ShardedScalarQuantizer(_ShardedBase):
 @partial(
     jax.jit,
     static_argnames=(
-        "mesh", "axis", "k", "count", "distance_type", "method",
-        "recall_target",
+        "mesh", "axis", "k", "count", "distance_type",
     ),
 )
 def _sq_sharded_topk(
     qcodes, qoff, codes, voff, multiplier, *, mesh, axis, k, count,
-    distance_type, method="exact", recall_target=0.95,
+    distance_type,
 ):
     def local(qc, qo, c, vo, mult):
-        from ..ops.pallas.ktile import APPROX_K_MAX, FUSED_K_MAX
-        from ..ops.pallas.sq_kernel import (
-            TILE_N as SQ_TILE,
-            sq_scores_pallas,
-            sq_search_pallas,
-        )
-
-        n_local = c.shape[0]
-        kk = min(k, n_local)
-        fused_ok = kk <= (APPROX_K_MAX if method == "approx" else FUSED_K_MAX)
-        if (
-            dispatch.use_pallas()
-            and distance_type != DistanceType.L1
-            and n_local % SQ_TILE == 0
-            and fused_ok
-        ):
-            # Per-shard FUSED search — the [Q, n_local] score matrix never
-            # materializes (1.28 GB/call at 1.25M rows: the score-matrix
-            # local path measured 22.5 vs 4.7 ms single-device on a
-            # 1-device real mesh). Per-shard validity is data-dependent
-            # (the LAST shard holds the global padding) while the kernel's
-            # n_valid is static, so padding is masked through ``vo``: the
-            # SQ score is affine in the per-vector offset, and a -3.4e38
-            # offset keeps padding rows out of any top-k at every
-            # distance type — exactness untouched.
-            shard_idx = jax.lax.axis_index(axis)
-            rows = shard_idx * n_local + jax.lax.iota(jnp.int32, n_local)
-            vo_m = jnp.where(rows < count, vo, jnp.float32(-3.4e38))
-            s, li = sq_search_pallas(
-                qc, qo, c, vo_m, mult,
-                distance_type=distance_type, n_valid=n_local, k=kk,
-                mode=method, recall_target=recall_target,
-            )
-            gi = jnp.where(li >= 0, li + shard_idx * n_local, -1)
-            valid = (gi >= 0) & (gi < count)
-            s = jnp.where(valid, s, NEG_INF)
-            gi = jnp.where(valid, gi, -1)
-            return gathered_topk_merge(s, gi, axis, k)
-        if (
-            dispatch.use_pallas()
-            and distance_type != DistanceType.L1
-            and n_local % SQ_TILE == 0
-        ):
-            # Per-shard Pallas MXU kernel; padding rows are masked by
-            # `count` in local_topk_merge, so n_valid = n_local here.
-            scores = sq_scores_pallas(
-                qc, qo, c, vo, mult,
-                distance_type=distance_type, n_valid=n_local,
-            )
+        if distance_type == DistanceType.L1:
+            raw = sq_ops.int_l1(qc, c)
         else:
-            if distance_type == DistanceType.L1:
-                raw = sq_ops.int_l1(qc, c)
-            else:
-                raw = sq_ops.int_dot(qc, c)
-            scores = (
-                mult * raw.astype(jnp.float32) + qo[:, None] + vo[None, :]
-            )
+            raw = sq_ops.int_dot(qc, c)
+        scores = mult * raw.astype(jnp.float32) + qo[:, None] + vo[None, :]
         return local_topk_merge(
-            scores, axis, k, count, method=method,
-            recall_target=recall_target,
+            scores, axis, k, count,
         )
 
     fn = jax.shard_map(
@@ -744,8 +671,15 @@ def _bq_sharded_score_internal(
     return fn(ia, ib, planes)
 
 
+def _word_pad(row_bytes: int) -> int:
+    """Plane words per row, padded to the layout's word alignment."""
+    w = (row_bytes + 3) // 4
+    return max(w + (-w) % bq_ops.WORD_ALIGN, bq_ops.WORD_ALIGN)
+
+
 class ShardedBinaryQuantizer(_ShardedBase):
-    """BQ bit-planes sharded over the corpus axis: uint32[W, N/s] per chip."""
+    """BQ bit-planes sharded over the corpus axis: uint32[W, N/s] per
+    device."""
 
     def __init__(
         self,
@@ -754,10 +688,8 @@ class ShardedBinaryQuantizer(_ShardedBase):
         axis: str = "shard",
     ):
         super().__init__(quantizer, mesh, axis)
-        from ..ops.pallas.bq_kernel import MXU_TILE_N
-
         self.store_type = quantizer.store_type
-        n_pad = self._shard_dim(self.count, MXU_TILE_N)
+        n_pad = self._shard_dim(self.count, bq_ops.SHARD_ROW_ALIGN)
         planes = np.asarray(quantizer.planes)[:, : self.count]
         if planes.shape[1] < n_pad:
             planes = np.pad(planes, ((0, 0), (0, n_pad - planes.shape[1])))
@@ -790,13 +722,13 @@ class ShardedBinaryQuantizer(_ShardedBase):
         """Streaming sharded-native sign-bit packing
         (encoded_vectors_binary.rs:165-191 semantics, per-shard buffers)."""
         from ..core.interface import iter_batches
-        from ..ops.pallas.bq_kernel import MXU_TILE_N, W_ALIGN
 
         mesh = mesh if mesh is not None else make_mesh()
         row_bytes = bq_ops.storage_bytes(params.dim, store_type)
-        w = (row_bytes + 3) // 4
-        wpad = max(w + (-w) % W_ALIGN, W_ALIGN)
-        npad = cls._shard_dim_for(mesh, axis, params.count, MXU_TILE_N)
+        wpad = _word_pad(row_bytes)
+        npad = cls._shard_dim_for(
+            mesh, axis, params.count, bq_ops.SHARD_ROW_ALIGN
+        )
         app = DeviceAppender(
             (wpad, npad), jnp.uint32,
             sharding=NamedSharding(mesh, P(None, axis)), axis=1,
@@ -866,10 +798,6 @@ class ShardedBinaryQuantizer(_ShardedBase):
             distance_type=p.distance_type,
             invert=p.invert,
             dim=p.dim,
-            method=method,
-            recall_target=(
-                0.95 if recall_target is None else float(recall_target)
-            ),
         )
 
     def score_internal_batch(self, ids_a, ids_b) -> jax.Array:
@@ -935,8 +863,6 @@ class ShardedBinaryQuantizer(_ShardedBase):
         import json
         import os
 
-        from ..ops.pallas.bq_kernel import MXU_TILE_N, W_ALIGN
-
         mesh = mesh if mesh is not None else make_mesh()
         try:
             with open(meta_path) as f:
@@ -951,9 +877,8 @@ class ShardedBinaryQuantizer(_ShardedBase):
             raise StorageIOError(
                 f"file size {actual_size} does not match expected {expected}"
             )
-        w = (row_bytes + 3) // 4
-        wpad = max(w + (-w) % W_ALIGN, W_ALIGN)
-        npad = cls._shard_dim_for(mesh, axis, n, MXU_TILE_N)
+        wpad = _word_pad(row_bytes)
+        npad = cls._shard_dim_for(mesh, axis, n, bq_ops.SHARD_ROW_ALIGN)
         mm = (
             np.memmap(data_path, np.uint8, "r").reshape(n, row_bytes)
             if n
@@ -982,63 +907,17 @@ class ShardedBinaryQuantizer(_ShardedBase):
     jax.jit,
     static_argnames=(
         "mesh", "axis", "k", "count", "distance_type", "invert", "dim",
-        "method", "recall_target",
     ),
 )
 def _bq_sharded_topk(
     qplanes, planes, *, mesh, axis, k, count, distance_type, invert, dim,
-    method="exact", recall_target=0.95,
 ):
     def local(qp, pl_shard):
-        from ..ops.pallas.bq_kernel import (
-            MXU_TILE_N,
-            bq_scores_mxu,
-            bq_search_mxu,
+        scores = bq_ops.score_batch_xla(
+            qp, pl_shard, distance_type=distance_type, invert=invert, dim=dim
         )
-        from ..ops.pallas.ktile import APPROX_K_MAX, FUSED_K_MAX
-
-        n_local = pl_shard.shape[1]
-        kk = min(k, n_local)
-        fused_ok = kk <= (APPROX_K_MAX if method == "approx" else FUSED_K_MAX)
-        pallas_ok = (
-            dispatch.use_pallas()
-            and n_local % MXU_TILE_N == 0
-            and pl_shard.shape[0] % 8 == 0
-        )
-        if pallas_ok and fused_ok:
-            # Per-shard FUSED search (no [Q, n_local] score matrix — see
-            # the SQ twin above). The last shard's data-dependent padding
-            # cutoff rides the kernel's SMEM n_valid operand.
-            shard_idx = jax.lax.axis_index(axis)
-            shard_valid = jnp.clip(count - shard_idx * n_local, 0, n_local)
-            s, li = bq_search_mxu(
-                qp, pl_shard,
-                distance_type=distance_type, invert=invert, dim=dim,
-                n_valid=n_local, k=kk, mode=method,
-                n_valid_dyn=shard_valid, recall_target=recall_target,
-            )
-            gi = jnp.where(li >= 0, li + shard_idx * n_local, -1)
-            valid = (gi >= 0) & (gi < count)
-            s = jnp.where(valid, s, NEG_INF)
-            gi = jnp.where(valid, gi, -1)
-            return gathered_topk_merge(s, gi, axis, k)
-        if pallas_ok:
-            scores = bq_scores_mxu(
-                qp, pl_shard,
-                distance_type=distance_type, invert=invert, dim=dim,
-                n_valid=n_local,
-            )
-        else:
-            scores = bq_ops.score_batch_xla(
-                qp,
-                pl_shard,
-                distance_type=distance_type,
-                invert=invert,
-                dim=dim,
-            )
         return local_topk_merge(
-            scores, axis, k, count, method=method,
-            recall_target=recall_target,
+            scores, axis, k, count,
         )
 
     fn = jax.shard_map(
@@ -1086,8 +965,8 @@ def _bq_sharded_score_candidates(
 
 
 class ShardedProductQuantizer(_ShardedBase):
-    """PQ codes sharded over the corpus axis: u8[N/s, m] per chip; the LUT is
-    replicated (it is per-query, tiny)."""
+    """PQ codes sharded over the corpus axis: u8[m, N/s] per device; the LUT
+    is replicated (it is per-query, tiny)."""
 
     def __init__(
         self,
@@ -1096,12 +975,9 @@ class ShardedProductQuantizer(_ShardedBase):
         axis: str = "shard",
     ):
         super().__init__(quantizer, mesh, axis)
-        from ..ops.pallas.pq_kernel import TILE_N as PQ_TILE
-
-        n_pad = self._shard_dim(self.count, PQ_TILE)
+        n_pad = self._shard_dim(self.count, pq_ops.ROW_ALIGN)
         self.num_chunks = quantizer.num_chunks
-        # Transposed [Mpad, Npad] scoring layout sharded on the corpus
-        # (lane) axis — the same layout the single-chip Pallas kernel uses.
+        # Transposed [Mpad, Npad] layout sharded on the corpus axis.
         codes_t = np.asarray(quantizer.codes_t)[:, : self.count]
         if codes_t.shape[1] < n_pad:
             codes_t = np.pad(codes_t, ((0, 0), (0, n_pad - codes_t.shape[1])))
@@ -1151,7 +1027,6 @@ class ShardedProductQuantizer(_ShardedBase):
         OPQ exactly as on the single-device class (models/pq.py) — the
         rotation is replicated (it is [dim, dim], tiny next to codes)."""
         from ..core.interface import iter_batches
-        from ..ops.pallas.pq_kernel import M_BLK, TILE_N as PQ_TILE
 
         if bits not in (4, 8):
             raise ArgumentsError(f"bits must be 4 or 8, got {bits}")
@@ -1170,8 +1045,8 @@ class ShardedProductQuantizer(_ShardedBase):
         c_chunks = jnp.asarray(pq_ops.centroids_to_chunks(centroids, division))
 
         m = len(division)
-        mpad = max(m + (-m) % M_BLK, M_BLK)
-        npad = cls._shard_dim_for(mesh, axis, params.count, PQ_TILE)
+        mpad = max(m + (-m) % pq_ops.CHUNK_ALIGN, pq_ops.CHUNK_ALIGN)
+        npad = cls._shard_dim_for(mesh, axis, params.count, pq_ops.ROW_ALIGN)
         app = DeviceAppender(
             (mpad, npad), jnp.uint8,
             sharding=NamedSharding(mesh, P(None, axis)), axis=1,
@@ -1240,8 +1115,6 @@ class ShardedProductQuantizer(_ShardedBase):
         self, equery: EncodedQueryPQ, k: int, method: str = "exact",
         recall_target: Optional[float] = None,
     ) -> Tuple[jax.Array, jax.Array]:
-        from ..ops.pallas.pq_kernel import _lut_precision
-
         return _pq_sharded_topk(
             equery.lut,
             self.codes_t,
@@ -1250,14 +1123,6 @@ class ShardedProductQuantizer(_ShardedBase):
             k=k,
             count=self.count,
             num_chunks=self.num_chunks,
-            method=method,
-            # Resolved here (not inside the jitted kernel) so the env knob
-            # is an explicit static argument — changing it after first use
-            # retraces instead of being silently ignored.
-            precision=_lut_precision(),
-            recall_target=(
-                0.95 if recall_target is None else float(recall_target)
-            ),
         )
 
     def score_candidates(self, equery: EncodedQueryPQ, cand) -> jax.Array:
@@ -1341,8 +1206,6 @@ class ShardedProductQuantizer(_ShardedBase):
         import json
         import os
 
-        from ..ops.pallas.pq_kernel import M_BLK, TILE_N as PQ_TILE
-
         mesh = mesh if mesh is not None else make_mesh()
         try:
             with open(meta_path) as f:
@@ -1358,8 +1221,8 @@ class ShardedProductQuantizer(_ShardedBase):
             raise StorageIOError(
                 f"file size {actual_size} does not match expected {expected}"
             )
-        mpad = max(m + (-m) % M_BLK, M_BLK)
-        npad = cls._shard_dim_for(mesh, axis, n, PQ_TILE)
+        mpad = max(m + (-m) % pq_ops.CHUNK_ALIGN, pq_ops.CHUNK_ALIGN)
+        npad = cls._shard_dim_for(mesh, axis, n, pq_ops.ROW_ALIGN)
         mm = (
             np.memmap(data_path, np.uint8, "r").reshape(n, row_size)
             if n
@@ -1392,58 +1255,18 @@ class ShardedProductQuantizer(_ShardedBase):
 @partial(
     jax.jit,
     static_argnames=(
-        "mesh", "axis", "k", "count", "num_chunks", "method", "precision",
-        "recall_target",
+        "mesh", "axis", "k", "count", "num_chunks",
     ),
 )
 def _pq_sharded_topk(
-    lut, codes_t, *, mesh, axis, k, count, num_chunks, method="exact",
-    precision=None, recall_target=0.95,
+    lut, codes_t, *, mesh, axis, k, count, num_chunks,
 ):
     def local(lut_rep, codes_t_shard):
-        from ..ops.pallas.ktile import APPROX_K_MAX, FUSED_K_MAX
-        from ..ops.pallas.pq_kernel import (
-            M_BLK,
-            TILE_N as PQ_TILE,
-            pq_scores_pallas,
-            pq_search_pallas,
+        scores = pq_ops.score_lut_xla(
+            lut_rep, codes_t_shard.T[:, :num_chunks]
         )
-
-        n_local = codes_t_shard.shape[1]
-        kk = min(k, n_local)
-        fused_ok = kk <= (APPROX_K_MAX if method == "approx" else FUSED_K_MAX)
-        pallas_ok = (
-            dispatch.use_pallas()
-            and n_local % PQ_TILE == 0
-            and codes_t_shard.shape[0] % M_BLK == 0
-        )
-        if pallas_ok and fused_ok:
-            # Per-shard FUSED search (see the SQ twin above); the last
-            # shard's data-dependent padding cutoff rides the kernel's
-            # SMEM n_valid operand.
-            shard_idx = jax.lax.axis_index(axis)
-            shard_valid = jnp.clip(count - shard_idx * n_local, 0, n_local)
-            s, li = pq_search_pallas(
-                lut_rep, codes_t_shard,
-                n_valid=n_local, k=kk, mode=method, precision=precision,
-                n_valid_dyn=shard_valid, recall_target=recall_target,
-            )
-            gi = jnp.where(li >= 0, li + shard_idx * n_local, -1)
-            valid = (gi >= 0) & (gi < count)
-            s = jnp.where(valid, s, NEG_INF)
-            gi = jnp.where(valid, gi, -1)
-            return gathered_topk_merge(s, gi, axis, k)
-        if pallas_ok:
-            scores = pq_scores_pallas(
-                lut_rep, codes_t_shard, n_valid=n_local, precision=precision
-            )
-        else:
-            scores = pq_ops.score_lut_xla(
-                lut_rep, codes_t_shard.T[:, :num_chunks]
-            )
         return local_topk_merge(
-            scores, axis, k, count, method=method,
-            recall_target=recall_target,
+            scores, axis, k, count,
         )
 
     fn = jax.shard_map(

@@ -1,12 +1,13 @@
-"""Serving auto-configuration: the measured frontier as an API.
+"""Serving auto-configuration: the recall frontier as an API.
 
-BASELINE.md carries ~40 measured serving configurations across six
-method families x {nscan, rescore depth, bucket geometry, residual} —
-but choosing one required reading three tables and two prose rules
-(VERDICT r3 weak #6). This module encodes those rules:
+Earlier rounds measured recall@10 for ~40 serving configurations on
+seeded corpora (up to 10M x 768), across six method families x {nscan,
+rescore depth, bucket geometry, residual}. The recall figures below are
+those measurements; recall depends on the data and the codes, not on the
+device. This module encodes the rules they gave:
 
 * ``recommend(index, target_recall, ...)`` — a :class:`ServingPlan`
-  seeded from the measured frontier (BASELINE round-3/4 tables), with
+  seeded from the recall tables below, with
   an optional CALIBRATION sweep that walks the plan's knobs on a query
   sample against an exact f32 oracle until the target recall is met.
   Static rules get within the right regime; only a measurement can land
@@ -20,19 +21,18 @@ but choosing one required reading three tables and two prose rules
   (device-resident, O(Q x block) memory — the reference's bounded-heap
   GT pattern, ann_benchmark_data.rs:151-166).
 
-Measured rules encoded here (sources in BASELINE.md):
+Rules encoded here (recall@10 measured on seeded corpora):
 
 1. Full-scan SQ coarse saturates ~0.88 on realistic data; the SQ->f32
-   two-stage at ov=4 reaches 0.983 ("Realistic-distribution anchor").
+   two-stage at ov=4 reaches 0.983.
 2. BQ coarse is distribution-bound (0.336 realistic); serving BQ means
-   BQ->f32 at ov 16-32 ("2s BQ->f32 ov=64" row; ov=64 buys 0.979).
+   BQ->f32 at ov 16-32 (ov=64 buys 0.979).
 3. PQ/OPQ full-scan is a coarse/compression code — recommend routes
    PQ targets above its measured ceiling to a rescored plan.
 4. IVF coarse recall is a function of the SCANNED FRACTION and the
-   query-batch diversity ("IVF probe-limited serving" table; the
-   batch-union needs every query's clusters). Coarse saturates (0.868
-   for SQ at f=0.24) and the f32 rescore recovers the rest (0.979 at
-   R=4k).
+   query-batch diversity (the batch-union needs every query's
+   clusters). Coarse saturates (0.868 for SQ at f=0.24) and the f32
+   rescore recovers the rest (0.979 at R=4k).
 5. Geometry: nlist * bucket_size ~ N/3 or less, bucket_size the widest
    tile the family's indexed kernel rides (1024; 2048 pads too much at
    default nlist) — "Bucket-size leg" and the padding rule.
@@ -203,9 +203,9 @@ class _MethodPinned:
         return self._ix.top_k_device(eq, k, **self._pin(kw))
 
 
-# Measured IVF-SQ coarse recall vs scanned fraction at Q=256 (BASELINE
-# "IVF probe-limited serving", 10M realistic). Seeds the sweep's first
-# probe; calibration owns the final word.
+# IVF-SQ coarse recall@10 vs scanned fraction at Q=256, measured on a
+# seeded 10M x 768 realistic corpus. Seeds the sweep's first probe;
+# calibration owns the final word.
 _IVF_FRACTION_CURVE = [
     (0.012, 0.162), (0.049, 0.525), (0.122, 0.814), (0.244, 0.868),
 ]
@@ -215,11 +215,11 @@ _COARSE_CEILING = {"sq": 0.86, "bq": 0.33, "pq": 0.18}
 
 
 # Batch-diversity exponent: the union fraction scales SUBlinearly in Q
-# (query probe sets overlap). Two measured anchors (BASELINE "IVF
-# probe-limited serving" + latency leg): Q=32 needed ~1/5 the fraction
-# of Q=256 at equal recall, so f ~ Q^a with a = ln(5)/ln(8) ~ 0.774
-# (linear-in-Q would predict 1/8 — it over-shrinks small batches and
-# the calibration sweep then climbs several rungs; r4 weak #6).
+# (query probe sets overlap). Two measured recall anchors: Q=32 needed
+# ~1/5 the fraction of Q=256 at equal recall, so f ~ Q^a with
+# a = ln(5)/ln(8) ~ 0.774 (linear-in-Q would predict 1/8 — it
+# over-shrinks small batches and the calibration sweep then climbs
+# several rungs).
 _Q_DIVERSITY_EXP = 0.774
 # Uncalibrated floor: Q=1 measured full coarse recall at nscan=64 of
 # 21.6k buckets (~0.3%); never seed below 1%.
@@ -296,7 +296,7 @@ def recommend(
         if target_recall > ceiling - 0.05:
             plan.oversampling = 4.0
         plan.notes = (
-            f"seeded from BASELINE IVF tables (f={f:.3f} of {nb} buckets)"
+            f"seeded from the IVF recall table (f={f:.3f} of {nb} buckets)"
         )
     else:
         if kind == "sq":
@@ -305,7 +305,7 @@ def recommend(
             plan.oversampling = max(4.0, 16.0 * target_recall)
         else:  # pq family: coarse/compression code — always rescore
             plan.oversampling = 16.0
-        plan.notes = "seeded from BASELINE full-scan tables"
+        plan.notes = "seeded from the full-scan recall table"
         plan.expected_recall = None
 
     if queries is None or data is None:

@@ -1,46 +1,37 @@
 """Persistent XLA compilation cache.
 
 The engine's serving programs are compiled once per (shape, quantizer) and
-reused forever; paying the XLA compile each process start is pure waste — and
-on remote-compile setups (TPU pods behind a compile service) a cold compile
-can cost minutes. This enables JAX's persistent cache so every program is
-compiled exactly once per machine.
+reused; paying the XLA compile at every process start is waste. This turns
+on JAX's persistent cache so a program compiles once per cache directory.
 
-The reference has no analog (Rust is AOT-compiled); this is the TPU build's
-equivalent of shipping a compiled artifact.
+Where the cache lives: ``JAX_COMPILATION_CACHE_DIR`` when it is set (JAX
+reads it itself, and no other directory is set here), otherwise the fixed
+``<checkout>/.jax_cache`` (listed in ``.gitignore``). The path is part of
+what makes a cache hit, so it never moves.
 """
 
 from __future__ import annotations
 
 import os
 
-_DEFAULT_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+DEFAULT_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), ".jax_cache")
 
-_enabled = False
+ENV_VAR = "JAX_COMPILATION_CACHE_DIR"
 
 
-def enable_compilation_cache(path: str | None = None) -> str | None:
-    """Idempotently enable the persistent compilation cache.
-
-    Returns the cache dir, or None if disabled via QTPU_NO_COMPILE_CACHE=1.
-    """
-    global _enabled
-    if os.environ.get("QTPU_NO_COMPILE_CACHE") == "1":
-        return None
-    path = path or os.environ.get("QTPU_COMPILE_CACHE_DIR") or _DEFAULT_DIR
-    if _enabled:
-        return path
+def enable_compilation_cache() -> str:
+    """Turn on the persistent compilation cache; return its directory.
+    Idempotent. Call it before the first compile."""
     import jax
 
-    try:
+    path = os.environ.get(ENV_VAR)
+    if not path:
+        path = DEFAULT_DIR
         os.makedirs(path, exist_ok=True)
         jax.config.update("jax_compilation_cache_dir", path)
-        # Cache everything, however quick the compile: the remote-compile
-        # round trip itself is the cost being avoided.
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-        _enabled = True
-    except Exception:
-        return None
+    # Cache every program, however quick its compile: a search step is
+    # many small programs whose compiles add up at start-up.
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
     return path

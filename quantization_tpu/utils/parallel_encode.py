@@ -7,7 +7,7 @@ with two safety properties pinned by tests:
   * cooperative cancellation mid-stream (tests/stop_condition.rs)
   * no leaked/blocked threads when a worker panics (test_pq.rs:275-331)
 
-On TPU the *device* encode path needs none of this (batch order is array
+The *device* encode path needs none of this (batch order is array
 order), but the host-side native ingestion path still wants thread
 parallelism. ``ordered_parallel_map`` provides it with the same contract:
 results are committed strictly in input order, a worker exception cancels the

@@ -1,4 +1,4 @@
-"""BQ oracle tests — the TPU port of quantization/tests/test_binary.rs:
+"""BQ oracle tests — the JAX port of quantization/tests/test_binary.rs:
 +-1-valued seeded data; DOT within ``dim * 0.01`` of exact (equality in
 disguise); L1/L2 exact rank-order equality via stable argsort (reversed when
 inverted); word-boundary dim sweep 0/1/8/33/65/387; both storage tiers."""

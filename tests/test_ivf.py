@@ -23,6 +23,8 @@ from quantization_tpu.models.pipeline import ExactRescorer, TwoStageIndex
 from quantization_tpu.models.sq import ScalarQuantizerU8
 from quantization_tpu.ops import ivf as ivf_ops
 
+import _ivf_reference as ref
+
 DIM = 32
 K = 10
 
@@ -403,7 +405,7 @@ def test_residual_argument_errors(rng):
             data, mk(DistanceType.L1, True), quantizer="sq",
             nlist=2, bucket_size=512, residual=True,
         )
-    with pytest.raises(ArgumentsError):  # bucket % CORR_BLK
+    with pytest.raises(ArgumentsError):  # bucket % RESIDUAL_ALIGN
         IVFIndex.encode(
             data, mk(DistanceType.DOT, False), quantizer="sq",
             nlist=2, bucket_size=256, residual=True,
@@ -581,27 +583,42 @@ def test_residual_as_two_stage_coarse(rng):
     assert r2 > 0.9
 
 
-@pytest.fixture
-def force_pallas(monkeypatch):
-    monkeypatch.setenv("QTPU_FORCE_PALLAS", "1")
-    yield
-    monkeypatch.delenv("QTPU_FORCE_PALLAS", raising=False)
+def _check_against_reference(ivf, queries, eq, sv, ids, *, nprobe=None,
+                             nscan=None, rtol=1e-5, atol=1e-4):
+    """IVF ``top_k`` vs the numpy dense reference over the same union
+    (tests/_ivf_reference.py)."""
+    meta = ivf.metadata
+    nb = meta.nbuckets
+    p = min(int(nprobe or meta.nprobe), nb)
+    nscan = nscan if nscan is not None else meta.nscan
+    u = max(min(int(nscan) if nscan else 4 * p, nb), p)
+    union = ref.union_buckets(
+        ivf.bucket_means, queries, ivf.params.distance_type,
+        ivf.params.invert, p, u,
+    )
+    eq_arrays, inner = ivf._family_arrays(eq[1])
+    if meta.kind == "pq":
+        inner = (np.asarray(ivf.quantizer.codes),)
+        if meta.residual:
+            inner = inner + (np.asarray(ivf._resid_pq),)
+    top, by_id = ref.reference_topk(
+        meta.kind, queries, eq_arrays, inner, np.asarray(ivf._slot_ids_dev),
+        union, meta.bucket_size, K, dim=ivf.params.dim,
+        dt=ivf.params.distance_type, invert=ivf.params.invert,
+        means=ivf.bucket_means,
+        corr_scale=(float(ivf._corr_scale_dev) if meta.residual else None),
+    )
+    ref.assert_matches_reference(sv, ids, top, by_id, rtol=rtol, atol=atol)
 
 
 @pytest.mark.parametrize(
     "kind,method",
     [("sq", "approx"), ("sq", "exact"), ("bq", "approx")],
 )
-def test_indexed_scan_chunking_matches_unchunked(
-    rng, force_pallas, kind, method, monkeypatch
-):
-    # Huge-union indexed scans split the tile list into bounded chunks
-    # (capacity-leg fix: unchunked candidate buffers grow with the tile
-    # count and thrash HBM at 100M). Each chunk's top-kk2 is exact
-    # w.r.t. its tiles, so chunked == unchunked bitwise at equal tile
-    # geometry. Force tiny chunks so CPU-scale fixtures exercise it.
-    import quantization_tpu.models.ivf as ivfmod
-
+def test_indexed_scan_chunking_matches_unchunked(rng, kind, method):
+    # Whole-union scans (every bucket) must equal the dense reference
+    # over all slots: the compact gather, slot-id map and dedupe lose
+    # nothing however wide the union.
     count = 3000
     data = clustered(rng, count, DIM, clusters=8, sigma=0.08)
     queries = clustered(rng, 8, DIM, clusters=8, sigma=0.08)
@@ -610,52 +627,28 @@ def test_indexed_scan_chunking_matches_unchunked(
         data, params, quantizer=kind, nlist=8, bucket_size=512, nprobe=8,
     )
     eq = ivf.encode_query(queries)
-    u_s, u_i = ivf.top_k(
-        eq, K, method=method, scan="indexed", nscan=ivf.metadata.nbuckets
-    )
-    monkeypatch.setattr(ivfmod, "_INDEXED_CHUNK_TILES", 2)
-    import jax
-
-    jax.clear_caches()  # the jitted search baked the unchunked scan
-    c_s, c_i = ivf.top_k(
-        eq, K, method=method, scan="indexed", nscan=ivf.metadata.nbuckets
-    )
-    np.testing.assert_allclose(
-        np.asarray(c_s), np.asarray(u_s), rtol=1e-6, atol=1e-5
-    )
-    if kind == "sq":
-        np.testing.assert_array_equal(np.asarray(c_i), np.asarray(u_i))
-    # bq: 1-bit scores tie in droves on clustered data; equal score
-    # vectors (asserted above) are the chunking invariant, ids may swap
-    # within a tie class.
+    nb = ivf.metadata.nbuckets
+    sv, ids = ivf.top_k(eq, K, method=method, nscan=nb)
+    _check_against_reference(ivf, queries, eq, sv, ids, nscan=nb)
 
 
 @pytest.mark.parametrize(
     "kind,method,bucket,same_tile",
     [
-        # same_tile: the indexed kernel walks the SAME tile width the
-        # compact scan uses, so both see identical per-tile contents and
-        # scores must match bitwise. BQ (indexed tn=512 vs dense tn=2048)
-        # and the derated PQ tile (512 vs 1024) extract over DIFFERENT
-        # tile geometries: the lossy strided extraction can keep
-        # different members of near-tied candidates (measured max|diff|=6
-        # on BQ at 1M on hardware — PERF_NOTES), so those assert top-k id
-        # overlap instead of score equality.
         ("sq", "exact", 512, True),
         ("sq", "approx", 512, True),
-        # widened indexed tile (1024); compact may widen differently
         ("sq", "approx", 1024, False),
         ("bq", "approx", 512, False),
         ("pq", "approx", 1024, True),
-        ("pq", "approx", 512, False),  # derated indexed tile (tile_n=512)
+        ("pq", "approx", 512, False),
     ],
 )
 def test_ivf_indexed_scan_matches_compact(
-    rng, force_pallas, kind, method, bucket, same_tile
+    rng, kind, method, bucket, same_tile
 ):
-    # The scalar-prefetch in-place scan (scan="indexed": the kernel grid
-    # walks the union's tiles, no compaction copy) must score the same
-    # buckets as the compacted path.
+    # scan="auto" and scan="compact" are the same gathered scan and both
+    # equal the dense reference over the probed union; scan="indexed"
+    # (the removed in-place scan) raises with a pointer to ROADMAP.
     count = 3000
     data = clustered(rng, count, DIM, clusters=8, sigma=0.08)
     queries = clustered(rng, 8, DIM, clusters=8, sigma=0.08)
@@ -666,67 +659,35 @@ def test_ivf_indexed_scan_matches_compact(
         **kw,
     )
     eq = ivf.encode_query(queries)
-    i_s, i_i = ivf.top_k(eq, K, method=method, scan="indexed")
+    a_s, a_i = ivf.top_k(eq, K, method=method, scan="auto")
     c_s, c_i = ivf.top_k(eq, K, method=method, scan="compact")
-    if same_tile:
-        np.testing.assert_allclose(
-            np.asarray(i_s), np.asarray(c_s), rtol=1e-5, atol=1e-4
-        )
-    else:
-        overlap = np.mean([
-            len(set(i_i[r].tolist()) & set(c_i[r].tolist())) / K
-            for r in range(len(i_i))
-        ])
-        assert overlap >= 0.8
-    for r in range(len(i_i)):  # dedupe holds on the indexed path too
-        row = np.asarray(i_i)[r]
-        assert len(set(row.tolist())) == len(row)
-    # small buckets can't take the indexed path: explicit request errors
-    small = IVFIndex.encode(
-        data, params, quantizer=kind, nlist=8, bucket_size=64, nprobe=4,
-        **kw,
-    )
+    np.testing.assert_array_equal(a_s, c_s)
+    np.testing.assert_array_equal(a_i, c_i)
+    _check_against_reference(ivf, queries, eq, c_s, c_i)
+    with pytest.raises(ArgumentsError, match="ROADMAP"):
+        ivf.top_k(eq, K, method=method, scan="indexed")
     with pytest.raises(ArgumentsError):
-        small.top_k(small.encode_query(queries), K, scan="indexed")
-    if kind != "sq":  # BQ/PQ indexed scans are approx-selection only
-        with pytest.raises(ArgumentsError):
-            ivf.top_k(eq, K, method="exact", scan="indexed")
+        ivf.top_k(eq, K, scan="bogus")
 
 
 @pytest.mark.parametrize("kind", ["sq", "pq", "bq"])
-def test_ivf_fused_path_matches_xla(rng, force_pallas, monkeypatch, kind):
-    # The compacted-union scan through the family's FUSED kernel
-    # (interpreted off-TPU) must agree with the XLA dense path on ids for
-    # a well-separated corpus. Exercises the pad-to-tile + transpose +
-    # n_valid plumbing the CPU default path skips.
+def test_ivf_fused_path_matches_xla(rng, kind):
+    # A probe-limited search (nprobe=4 of 8 lists, small buckets, so
+    # pad slots and the dedupe margin are exercised) equals the dense
+    # reference over the same union.
     count = 900
     data = clustered(rng, count, DIM, clusters=8, sigma=0.08)
     queries = clustered(rng, 8, DIM, clusters=8, sigma=0.08)
     params = VectorParameters(DIM, count, DistanceType.DOT, False)
     kw = {"chunk_size": 2} if kind == "pq" else {}
-    if kind == "pq":
-        # The fused kernel's default int8-quantized LUT is a documented
-        # score approximation; pin bf16 for exact parity with the XLA LUT.
-        monkeypatch.setenv("QTPU_PQ_LUT", "bf16")
     ivf = IVFIndex.encode(
         data, params, quantizer=kind, nlist=8, bucket_size=64,
         nprobe=4, **kw,
     )
     eq = ivf.encode_query(queries)
-    fused_s, fused_i = ivf.top_k(eq, K, nprobe=4)
-    for r in range(len(fused_i)):  # dedupe holds on the fused path
-        row = np.asarray(fused_i)[r]
-        assert len(set(row.tolist())) == len(row)
-    monkeypatch.setenv("QTPU_DISABLE_PALLAS", "1")
-    monkeypatch.delenv("QTPU_FORCE_PALLAS", raising=False)
-    xla_s, xla_i = ivf.top_k(eq, K, nprobe=4)
-    # Score-VALUE parity (ids may differ inside exact ties — BQ scores
-    # are integers, so k-boundary ties are routine; bf16 LUT rounding
-    # gives PQ a ~0.03 quantum).
-    np.testing.assert_allclose(
-        np.asarray(fused_s), np.asarray(xla_s), rtol=1e-4, atol=0.08
-    )
-    assert np.all(np.asarray(fused_i) >= 0)
+    sv, ids = ivf.top_k(eq, K, nprobe=4)
+    assert np.all(np.asarray(ids) >= 0)
+    _check_against_reference(ivf, queries, eq, sv, ids, nprobe=4)
 
 
 @pytest.mark.parametrize(
@@ -735,224 +696,73 @@ def test_ivf_fused_path_matches_xla(rng, force_pallas, monkeypatch, kind):
         ("sq", "exact", None),
         ("sq", "approx", None),
         ("pq", "approx", "bf16"),
-        ("pq", "exact", None),  # bf16x2 default
-        # The SHIPPED defaults and the explicit quantized override
-        # (advisor r3 #1: the non-bf16 residual scan — per-chunk-mid
-        # dequant folding |q|^2 into bias, rowadd + corr pre-extraction
-        # — must be pinned, not just the exactness-friendly bf16 paths).
-        ("pq", "approx", None),  # bf16x2 default
+        ("pq", "exact", None),
+        ("pq", "approx", None),
         ("pq", "approx", "int8"),
-        # Residual-BQ: asymmetric affine query + corr through the BQ
-        # kernels (exact = f32-keyed class ladder, approx = corr'd
-        # strided extraction incl. the indexed scan under scan="auto").
         ("bq", "exact", None),
         ("bq", "approx", None),
     ],
 )
-def test_residual_fused_matches_xla(
-    rng, force_pallas, monkeypatch, kind, method, lut
-):
-    # The in-kernel additive correction (scores += corr block before
-    # extraction, ops/pallas CORR_BLK) must reproduce the XLA path's
-    # post-hoc add. PQ exact rides the f32-keyed class extraction with
-    # the additives applied pre-extraction (bf16x2 LUT by default; the
-    # int8 packed chains can't absorb additives and fall back to XLA).
-    if lut is not None:
-        monkeypatch.setenv("QTPU_PQ_LUT", lut)
-    else:
-        monkeypatch.delenv("QTPU_PQ_LUT", raising=False)
+def test_residual_fused_matches_xla(rng, kind, method, lut):
+    # Residual search (inner codes of v - c_b, the bucket term q . c_b
+    # restored at search, pad slots masked) equals the dense numpy
+    # reference of the dot-expansion over the same union. ``lut`` names
+    # the removed kernels' LUT encodings; every case now scores the f32
+    # LUT, so the cases differ only in method.
+    del lut
     dt = DistanceType.DOT if kind == "bq" else DistanceType.L2
     data, queries, params, idx = _res_pair(
         rng, kind, dt, kind != "bq", count=2500, nlist=4
     )
     ivf = idx[True]
     eq = ivf.encode_query(queries)
-    fused_s, fused_i = ivf.top_k(eq, K, method=method, nprobe=4)
-    for r in range(len(fused_i)):
-        row = np.asarray(fused_i)[r]
-        assert len(set(row.tolist())) == len(row)
-    monkeypatch.setenv("QTPU_DISABLE_PALLAS", "1")
-    monkeypatch.delenv("QTPU_FORCE_PALLAS", raising=False)
-    xla_s, xla_i = ivf.top_k(eq, K, method=method, nprobe=4)
-    if method == "exact":
-        np.testing.assert_allclose(
-            np.asarray(fused_s), np.asarray(xla_s), rtol=1e-4, atol=0.05
-        )
-    else:
-        overlap = np.mean([
-            len(set(np.asarray(fused_i)[r].tolist())
-                & set(np.asarray(xla_i)[r].tolist())) / K
-            for r in range(len(fused_i))
-        ])
-        # int8 LUT on residual-scale scores is a known lossy override
-        # (the reason bf16x2 is the residual default — see
-        # test_residual_lut_precision_default): its step can rival the
-        # residual top-k spread, so the bar only pins "still ranks"
-        # (measured 0.625 here), not near-parity.
-        assert overlap >= (0.5 if lut == "int8" else 0.8)
-    assert np.all(np.asarray(fused_i) >= 0)
-
-
-def test_residual_lut_precision_default():
-    # Residual-PQ resolves the LUT to the two-word bf16x2 split when
-    # QTPU_PQ_LUT is unset: residual top-k spreads are residual-scale
-    # while LUT entries are data-scale, so the int8 step — and even plain
-    # bf16's ulp — can rival the whole spread (measured GT recall
-    # 0.69 f32 / 0.59 bf16 / 0.4-overlap int8). An explicit env override
-    # always wins.
-    from quantization_tpu.ops.pallas.pq_kernel import _lut_precision
-
-    import os
-
-    old = os.environ.pop("QTPU_PQ_LUT", None)
-    try:
-        assert _lut_precision() == "int8"
-        assert _lut_precision(residual=True) == "bf16x2"
-        os.environ["QTPU_PQ_LUT"] = "int8"
-        assert _lut_precision(residual=True) == "int8"
-    finally:
-        if old is None:
-            os.environ.pop("QTPU_PQ_LUT", None)
-        else:
-            os.environ["QTPU_PQ_LUT"] = old
+    sv, ids = ivf.top_k(eq, K, method=method, nprobe=4)
+    assert np.all(np.asarray(ids) >= 0)
+    _check_against_reference(ivf, queries, eq, sv, ids, nprobe=4)
 
 
 @pytest.mark.parametrize("scan", ["compact", "indexed"])
-def test_residual_pq_default_lut(rng, force_pallas, monkeypatch, scan):
-    # The SHIPPED default residual-PQ path with NO QTPU_PQ_LUT override
-    # (resolves to bf16 — see test_residual_lut_precision_default):
-    # dequant + rowadd + corr applied before extraction must track the
-    # XLA f32-LUT path on ids.
-    monkeypatch.delenv("QTPU_PQ_LUT", raising=False)
+def test_residual_pq_default_lut(rng, scan):
+    # The default residual-PQ path: compact equals the dense reference;
+    # the removed indexed scan raises.
     data, queries, params, idx = _res_pair(
         rng, "pq", DistanceType.L2, True, count=2500, nlist=4
     )
     ivf = idx[True]
     eq = ivf.encode_query(queries)
-    fused_s, fused_i = ivf.top_k(
-        eq, K, method="approx", scan=scan, nprobe=4
-    )
-    for r in range(len(fused_i)):
-        row = np.asarray(fused_i)[r]
-        assert len(set(row.tolist())) == len(row)
-    assert np.all(np.asarray(fused_i) >= 0)
-    monkeypatch.setenv("QTPU_DISABLE_PALLAS", "1")
-    monkeypatch.delenv("QTPU_FORCE_PALLAS", raising=False)
-    xla_s, xla_i = ivf.top_k(eq, K, method="approx", nprobe=4)
-    overlap = np.mean([
-        len(set(np.asarray(fused_i)[r].tolist())
-            & set(np.asarray(xla_i)[r].tolist())) / K
-        for r in range(len(fused_i))
-    ])
-    assert overlap >= 0.8
+    if scan == "indexed":
+        with pytest.raises(ArgumentsError, match="ROADMAP"):
+            ivf.top_k(eq, K, method="approx", scan=scan, nprobe=4)
+        return
+    sv, ids = ivf.top_k(eq, K, method="approx", scan=scan, nprobe=4)
+    assert np.all(np.asarray(ids) >= 0)
+    _check_against_reference(ivf, queries, eq, sv, ids, nprobe=4)
 
 
 @pytest.mark.parametrize(
     "kind,method", [("sq", "exact"), ("sq", "approx"), ("pq", "approx")]
 )
-def test_residual_indexed_scan_matches_compact(
-    rng, force_pallas, monkeypatch, kind, method
-):
-    # Residual corrections ride the scalar-prefetch indexed scan too: the
-    # GLOBAL per-512-block corr layout must agree with the compact scan's
-    # per-union layout.
-    if kind == "pq":
-        monkeypatch.setenv("QTPU_PQ_LUT", "bf16")
+def test_residual_indexed_scan_matches_compact(rng, kind, method):
+    # Residual corrections over a whole-union scan equal the reference,
+    # and scan="indexed" raises.
     data, queries, params, idx = _res_pair(
         rng, kind, DistanceType.L2, True, count=2500, nlist=4
     )
     ivf = idx[True]
     eq = ivf.encode_query(queries)
-    i_s, i_i = ivf.top_k(eq, K, method=method, scan="indexed", nprobe=4)
-    c_s, c_i = ivf.top_k(eq, K, method=method, scan="compact", nprobe=4)
-    if kind == "sq":  # same tile width: scores must match
-        np.testing.assert_allclose(
-            np.asarray(i_s), np.asarray(c_s), rtol=1e-5, atol=1e-4
-        )
-    else:  # derated PQ indexed tile: id overlap
-        overlap = np.mean([
-            len(set(np.asarray(i_i)[r].tolist())
-                & set(np.asarray(c_i)[r].tolist())) / K
-            for r in range(len(i_i))
-        ])
-        assert overlap >= 0.8
-    for r in range(len(i_i)):
-        row = np.asarray(i_i)[r]
-        assert len(set(row.tolist())) == len(row)
-
-
-def test_residual_pq_default_int8_lut_fused(rng, force_pallas):
-    # The SHIPPED default for the fused residual-PQ scan is the int8-
-    # quantized LUT (QTPU_PQ_LUT unset): the per-chunk mid-range centering
-    # must fold the residual |q|^2 shift into the bias so the dequantized
-    # scores (+ rowadd + corr applied before extraction) still rank
-    # correctly. Id-overlap tolerance vs the XLA path (one LUT quantization
-    # step of score noise is expected and documented).
-    import os
-
-    assert os.environ.get("QTPU_PQ_LUT") is None
-    data, queries, params, idx = _res_pair(
-        rng, "pq", DistanceType.L2, True, count=2500, nlist=4
-    )
-    ivf = idx[True]
-    eq = ivf.encode_query(queries)
-    fused_s, fused_i = ivf.top_k(eq, K, method="approx", nprobe=4)
-    os.environ["QTPU_DISABLE_PALLAS"] = "1"
-    try:
-        xla_s, xla_i = ivf.top_k(eq, K, method="approx", nprobe=4)
-    finally:
-        del os.environ["QTPU_DISABLE_PALLAS"]
-    overlap = np.mean([
-        len(set(np.asarray(fused_i)[r].tolist())
-            & set(np.asarray(xla_i)[r].tolist())) / K
-        for r in range(len(fused_i))
-    ])
-    assert overlap >= 0.8
-    assert np.all(np.asarray(fused_i) >= 0)
-
-
-def test_ivf_pq_lut_env_flip_takes_effect(rng, force_pallas, monkeypatch):
-    # QTPU_PQ_LUT is resolved at the model layer and threaded through
-    # _ivf_search as a STATIC jit argument: flipping it between calls must
-    # retrace (bf16 scores match the XLA f32 LUT tightly; int8 scores
-    # carry a visible quantization step). Regression for the round-3
-    # trace-time env read (VERDICT r3 weak #2).
-    count = 2000
-    data = clustered(rng, count, DIM, clusters=8, sigma=0.3)
-    queries = clustered(rng, 16, DIM, clusters=8, sigma=0.3)
-    params = VectorParameters(DIM, count, DistanceType.DOT, False)
-    ivf = IVFIndex.encode(
-        data, params, quantizer="pq", nlist=4, bucket_size=512, nprobe=4,
-        chunk_size=2,
-    )
-    eq = ivf.encode_query(queries)
-    monkeypatch.delenv("QTPU_PQ_LUT", raising=False)
-    s_int8, _ = ivf.top_k(eq, K, method="approx", nprobe=4)
-    monkeypatch.setenv("QTPU_PQ_LUT", "bf16")
-    s_bf16, _ = ivf.top_k(eq, K, method="approx", nprobe=4)
-    monkeypatch.setenv("QTPU_DISABLE_PALLAS", "1")
-    s_xla, _ = ivf.top_k(eq, K, method="approx", nprobe=4)
-    monkeypatch.delenv("QTPU_DISABLE_PALLAS", raising=False)
-    # bf16 tracks the f32 XLA LUT to bf16 rounding; int8 quantization is
-    # coarser by an order of magnitude. If the flip were ignored (one
-    # trace reused), the two fused calls would be bitwise identical and
-    # the bf16 error would equal the int8 error.
-    err_int8 = np.max(np.abs(np.asarray(s_int8) - np.asarray(s_xla)))
-    err_bf16 = np.max(np.abs(np.asarray(s_bf16) - np.asarray(s_xla)))
-    assert not np.array_equal(np.asarray(s_int8), np.asarray(s_bf16))
-    assert err_bf16 < err_int8
-    # ... and the indexed scan path resolves it the same way.
-    i_bf16, _ = ivf.top_k(eq, K, method="approx", scan="indexed", nprobe=4)
-    monkeypatch.delenv("QTPU_PQ_LUT", raising=False)
-    i_int8, _ = ivf.top_k(eq, K, method="approx", scan="indexed", nprobe=4)
-    assert not np.array_equal(np.asarray(i_bf16), np.asarray(i_int8))
+    nb = ivf.metadata.nbuckets
+    sv, ids = ivf.top_k(eq, K, method=method, nscan=nb)
+    _check_against_reference(ivf, queries, eq, sv, ids, nscan=nb)
+    with pytest.raises(ArgumentsError, match="ROADMAP"):
+        ivf.top_k(eq, K, method=method, scan="indexed")
 
 
 def test_ivf_pq_transposed_first_quantizer(rng):
     # An IVFIndex wrapping a transposed-first PQ quantizer (capacity
-    # layout) must search identically to the row-major one — indexed
-    # scans reuse the quantizer's own [Mpad, Npad] storage with no
-    # second copy, and residual row terms derive from it directly.
+    # layout) must search identically to the row-major one — the scan
+    # gathers the union's columns from the quantizer's own [Mpad, Npad]
+    # storage and never materializes the row-major copy, and residual
+    # row terms derive from it directly.
     import jax.numpy as jnp
 
     from quantization_tpu.models.pq import ProductQuantizer
@@ -982,3 +792,4 @@ def test_ivf_pq_transposed_first_quantizer(rng):
             np.testing.assert_allclose(
                 np.asarray(s1), np.asarray(s2), rtol=1e-5, atol=1e-5
             )
+        assert qz_t._codes is None  # the searches left it unmaterialized

@@ -149,43 +149,22 @@ def test_exact_rescorer_host_resident_matches_device(rng):
     )
 
 
-def test_pq_lut_precision_paths_agree(rng):
-    """int8 (default) and bf16 LUT paths of the fused PQ kernel must agree
-    within their quantization tolerances (forced Pallas interpret mode)."""
-    import numpy as np
-
-    from quantization_tpu.ops import pq as pq_ops
-    from quantization_tpu.ops.pallas.pq_kernel import (
-        M_BLK,
-        TILE_N,
-        pq_scores_pallas,
-    )
-    from quantization_tpu.utils.padding import round_up
-
-    n_valid, m, q = 300, 8, 4
-    npad = round_up(n_valid, TILE_N)
-    mpad = round_up(m, M_BLK)
-    codes = np.zeros((npad, mpad), np.uint8)
-    codes[:n_valid, :m] = rng.integers(0, 256, (n_valid, m), dtype=np.uint8)
-    # L2-like LUT: all-positive entries with a large common offset — the
-    # regime where mid-range centering matters most.
-    lut = 10.0 + rng.random((q, m, 256), dtype=np.float32)
-
+@pytest.mark.parametrize("dt", [DistanceType.DOT, DistanceType.L2])
+def test_pq_lut_scores_match_float64(rng, dt):
+    """The PQ scan over the f32 LUT (the one PQ scoring path) equals a
+    float64 numpy gather-sum of the same LUT, up to f32 summation
+    rounding; an L2-like LUT (all-positive entries with a large common
+    offset) is the regime where rounding is largest."""
     import jax.numpy as jnp
 
-    want = np.asarray(
-        pq_ops.score_lut_xla(jnp.asarray(lut), jnp.asarray(codes[:n_valid, :m]))
-    )
-    for precision in ("int8", "bf16"):
-        got = np.asarray(
-            pq_scores_pallas(
-                jnp.asarray(lut),
-                jnp.asarray(codes.T.copy()),
-                n_valid=n_valid,
-                interpret=True,
-                precision=precision,
-            )
-        )
-        # int8 with centering: step = max|centered|/127 ~ 0.004 per chunk
-        atol = m * 0.01 if precision == "int8" else np.abs(lut).sum() * 4e-3
-        np.testing.assert_allclose(got, want, atol=atol)
+    from quantization_tpu.ops import pq as pq_ops
+
+    n, m, q = 300, 8, 4
+    codes = rng.integers(0, 256, (n, m), dtype=np.uint8)
+    lut = rng.random((q, m, 256), dtype=np.float32)
+    if dt == DistanceType.L2:
+        lut = lut + np.float32(10.0)
+    got = np.asarray(pq_ops.score_lut_xla(jnp.asarray(lut), jnp.asarray(codes)))
+    terms = lut.astype(np.float64)[:, np.arange(m)[None, :], codes]
+    tol = m * 2.0 ** -23 * np.abs(terms).sum(axis=2)
+    assert np.all(np.abs(got - terms.sum(axis=2)) <= tol)

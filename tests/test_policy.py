@@ -1,9 +1,9 @@
 """Serving auto-config (quantization_tpu/policy.py): the measured
 frontier as an API (VERDICT r3 weak #6 / next-round #5).
 
-Pinned: auto_geometry encodes the measured rules (S = widest indexed
-tile, nlist*S ~ N/3, residual CORR_BLK floor); default-built IVF-PQ
-engages the indexed scan; recommend's calibration sweep lands within
+Pinned: auto_geometry encodes the geometry rules (S = 1024 for large
+corpora, nlist*S ~ N/3, residual bucket floor); default-built IVF-PQ gets
+that geometry and searches; recommend's calibration sweep lands within
 tolerance of the target recall on SQ / BQ / IVF variants and replays;
 unreachable targets are reported honestly."""
 
@@ -12,7 +12,7 @@ import pytest
 
 from quantization_tpu.core.types import DistanceType, VectorParameters
 from quantization_tpu.models.bq import BinaryQuantizer
-from quantization_tpu.models.ivf import IVFIndex, _indexed_tile, auto_geometry
+from quantization_tpu.models.ivf import IVFIndex, auto_geometry
 from quantization_tpu.models.sq import ScalarQuantizerU8
 from quantization_tpu.policy import (
     ServingPlan,
@@ -43,26 +43,27 @@ def test_auto_geometry_rules():
     assert auto_geometry(10_000)[1] < 1024
     assert auto_geometry(100)[1] == 32
     assert auto_geometry(100)[0] >= 1
-    # Residual floors S at the kernels' CORR_BLK.
+    # Residual floors S at ops.ivf.RESIDUAL_ALIGN.
     assert auto_geometry(100, residual=True)[1] == 512
     # Monotone: more rows never shrink the bucket.
     sizes = [auto_geometry(n)[1] for n in (10**3, 10**4, 10**5, 10**7)]
     assert sizes == sorted(sizes)
 
 
-def test_default_ivf_pq_engages_indexed_scan(rng):
-    # The round-3 default (nlist=1024, S=512) kept default IVF-PQ off its
-    # indexed kernel (S below the PQ tile). The auto geometry must not.
+def test_default_ivf_pq_geometry(rng):
+    # A default-built IVF-PQ takes the large-corpus geometry (S = 1024,
+    # PQ's row alignment) with nlist * S well under N, and searches.
+    from quantization_tpu.ops import pq as pq_ops
+
     count = 30_000
     data = clustered(rng, count, DIM)
     params = VectorParameters(DIM, count, DistanceType.DOT, False)
     ivf = IVFIndex.encode(data, params, quantizer="pq", chunk_size=4)
     s = ivf.metadata.bucket_size
-    assert s == 1024
+    assert s == 1024 == pq_ops.ROW_ALIGN
     assert ivf.metadata.nlist * s <= count / 2
-    from quantization_tpu.ops.pallas.pq_kernel import TILE_N
-
-    assert _indexed_tile("pq", s, "approx", "auto") == TILE_N
+    sv, ids = ivf.top_k(ivf.encode_query(data[:4]), K)
+    assert sv.shape == (4, K) and np.all(ids >= 0)
     # Pinning one knob still derives the other.
     ivf2 = IVFIndex.encode(
         data[:6000], VectorParameters(DIM, 6000, DistanceType.DOT, False),

@@ -1,4 +1,4 @@
-"""PQ oracle tests — the TPU port of quantization/tests/test_pq.rs:
+"""PQ oracle tests — the JAX port of quantization/tests/test_pq.rs:
 count=513, dim=65, chunk_size=1, score within ``dim * 0.05`` of exact, across
 dot/l1/l2 x {plain, inverted}, plus score_internal, the count<=256 fallback,
 save/load, and cancellation."""
@@ -162,39 +162,27 @@ def test_pq4_end_to_end_and_roundtrip(rng, tmp_path):
     np.testing.assert_array_equal(np.asarray(i), np.asarray(i2))
 
 
-def test_pq4_pallas_matches_xla(rng):
+def test_pq4_lut_scores_match_reference(rng):
+    # 4-bit codes (16 centroids per chunk): the LUT scan equals a float64
+    # numpy gather-sum; f32 sums of m terms differ from it by rounding
+    # only (at most m ulps of the running magnitude).
     from quantization_tpu.ops import pq as pq_ops
-    from quantization_tpu.ops.pallas.pq_kernel import (
-        M_BLK, TILE_N as PQ_TILE, pq_scores_pallas,
-    )
-    from quantization_tpu.utils.padding import round_up
     import jax.numpy as jnp
 
-    n_valid, m, q = 400, 24, 3
-    npad = round_up(n_valid, PQ_TILE)
-    mpad = round_up(m, M_BLK)
-    codes = np.zeros((npad, mpad), np.uint8)
-    codes[:n_valid, :m] = rng.integers(0, 16, (n_valid, m), dtype=np.uint8)
+    n, m, q = 400, 24, 3
+    codes = rng.integers(0, 16, (n, m), dtype=np.uint8)
     lut = rng.standard_normal((q, m, 16), dtype=np.float32)
-
-    want = np.asarray(
-        pq_ops.score_lut_xla(jnp.asarray(lut), jnp.asarray(codes[:n_valid, :m]))
-    )
-    got = np.asarray(
-        pq_scores_pallas(
-            jnp.asarray(lut), jnp.asarray(codes.T.copy()),
-            n_valid=n_valid, interpret=True,
-        )
-    )
-    scale = np.abs(lut).sum(axis=(1, 2)).max()
-    np.testing.assert_allclose(got, want, atol=scale * 4e-3)
+    got = np.asarray(pq_ops.score_lut_xla(jnp.asarray(lut), jnp.asarray(codes)))
+    terms = lut.astype(np.float64)[:, np.arange(m)[None, :], codes]
+    want = terms.sum(axis=2)
+    tol = m * 2.0 ** -23 * np.abs(terms).sum(axis=2)
+    assert np.all(np.abs(got - want) <= tol)
 
 
 def test_pq_from_transposed_parity(rng):
-    # Transposed-first construction (the capacity layout: [m, N] u8 pads
-    # no lanes on TPU, row-major [N, 96] pads to 128 B/row) must score
-    # identically to the normal constructor, and materialize the
-    # row-major codes only on demand.
+    # Transposed-first construction (the chunk-major layout the sharded
+    # engines append) must score identically to the normal constructor,
+    # and materialize the row-major codes only on demand.
     import jax.numpy as jnp
 
     data = make_data(rng, count=600)

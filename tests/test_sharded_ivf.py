@@ -21,6 +21,8 @@ from quantization_tpu.models.ivf import IVFIndex
 from quantization_tpu.parallel.sharded import make_mesh
 from quantization_tpu.parallel.sharded_ivf import ShardedIVF
 
+import _ivf_reference as ref
+
 DIM = 32
 K = 10
 
@@ -118,13 +120,62 @@ def test_methods_and_arguments(rng, mesh):
         sharded.top_k(eq, K, nprobe=-1)
 
 
+def _sharded_reference(sharded, queries, eq, sv, ids, *, nprobe=None,
+                       nscan=None):
+    """Sharded ``top_k`` vs the numpy dense reference over the buckets
+    every shard's quota selects (tests/_ivf_reference.py), read from the
+    sharded arrays in their round-robin layout."""
+    meta = sharded.metadata
+    nb = meta.nbuckets
+    p = min(int(nprobe or meta.nprobe), nb)
+    u = max(min(int(nscan) if nscan else 4 * p, nb), p)
+    u_loc = min(-(-u // sharded.n_shards), sharded._b_loc)
+    b_loc = sharded._b_loc
+    from quantization_tpu.models.ivf import _bucket_priority
+
+    prio = np.asarray(_bucket_priority(
+        jax.numpy.asarray(queries), sharded._means_dev,
+        sharded.params.distance_type, sharded.params.invert, p,
+    ))
+    buckets = np.concatenate([
+        sh * b_loc + np.argsort(-prio[sh * b_loc:(sh + 1) * b_loc],
+                                kind="stable")[:u_loc]
+        for sh in range(sharded.n_shards)
+    ])
+    q_eq = eq[1]
+    kind = meta.kind
+    inner = tuple(np.asarray(a) for a in sharded._inner)
+    if kind == "sq":
+        eq_arrays = (q_eq.codes, q_eq.offsets)
+        mult = q_eq.mult if meta.residual else sharded._mult_dev
+        inner = inner + (np.asarray(mult),)
+    elif kind == "bq":
+        eq_arrays = (
+            (q_eq.codes, q_eq.mult, q_eq.qb) if meta.residual
+            else (q_eq.planes,)
+        )
+    else:
+        eq_arrays = (q_eq.lut,)
+        if meta.residual:
+            inner = inner + (np.asarray(sharded._rowadd_dev),)
+    top, by_id = ref.reference_topk(
+        kind, queries, eq_arrays, inner, np.asarray(sharded._slot_ids_dev),
+        buckets, meta.bucket_size, K, dim=sharded.params.dim,
+        dt=sharded.params.distance_type, invert=sharded.params.invert,
+        means=np.asarray(sharded._means_dev),
+        corr_scale=(
+            float(sharded._corr_scale_dev) if meta.residual else None
+        ),
+    )
+    ref.assert_matches_reference(sv, ids, top, by_id)
+
+
 @pytest.mark.parametrize("kind,method", [("sq", "exact"), ("sq", "approx"),
                                           ("bq", "approx")])
-def test_sharded_indexed_scan_matches_compact(rng, mesh, kind, method,
-                                              monkeypatch):
-    # The per-shard scalar-prefetch scan must score the same buckets as
-    # the per-shard compacted scan: top-k score values identical.
-    monkeypatch.setenv("QTPU_FORCE_PALLAS", "1")
+def test_sharded_indexed_scan_matches_compact(rng, mesh, kind, method):
+    # The per-shard compact scan equals the dense reference over the
+    # buckets each shard's quota selects; scan="auto" is the same scan,
+    # and the removed in-place scan (scan="indexed") raises.
     count = 8 * 512
     data = clustered(rng, count, DIM, clusters=8, sigma=0.08)
     queries = clustered(rng, 8, DIM, clusters=8, sigma=0.08)
@@ -134,18 +185,13 @@ def test_sharded_indexed_scan_matches_compact(rng, mesh, kind, method,
         nprobe=4,
     )
     eq = sharded.encode_query(queries)
-    i_s, i_i = sharded.top_k(eq, K, method=method, scan="indexed")
+    a_s, a_i = sharded.top_k(eq, K, method=method, scan="auto")
     c_s, c_i = sharded.top_k(eq, K, method=method, scan="compact")
-    np.testing.assert_allclose(i_s, c_s, rtol=1e-5, atol=1e-5)
-    for row in i_i:
-        assert len(set(row.tolist())) == len(row)
-    pq = ShardedIVF.encode(
-        data, params, mesh=mesh, quantizer="pq", nlist=8,
-        bucket_size=1024, nprobe=4, chunk_size=4,
-    )
-    eq_pq = pq.encode_query(queries)
-    with pytest.raises(ArgumentsError):  # sharded PQ has no indexed scan
-        pq.top_k(eq_pq, K, method="approx", scan="indexed")
+    np.testing.assert_array_equal(a_s, c_s)
+    np.testing.assert_array_equal(a_i, c_i)
+    _sharded_reference(sharded, queries, eq, c_s, c_i)
+    with pytest.raises(ArgumentsError, match="ROADMAP"):
+        sharded.top_k(eq, K, method=method, scan="indexed")
 
 
 def test_fully_distributed_two_stage(rng, mesh):
@@ -354,9 +400,9 @@ def test_residual_full_union_matches_single_device(rng, mesh, kind):
     assert np.all(ids3 >= 0)
 
 
-def test_residual_sharded_indexed_scan(rng, mesh, monkeypatch):
-    # Residual corrections ride the per-shard scalar-prefetch scan too.
-    monkeypatch.setenv("QTPU_FORCE_PALLAS", "1")
+def test_residual_sharded_indexed_scan(rng, mesh):
+    # Residual corrections on the per-shard scan equal the dense numpy
+    # reference of the dot-expansion; scan="indexed" raises.
     count = 3000
     centers = rng.standard_normal((6, DIM)).astype(np.float32) * 3
     assign = rng.integers(0, 6, count)
@@ -371,8 +417,7 @@ def test_residual_sharded_indexed_scan(rng, mesh, monkeypatch):
         bucket_size=512, nprobe=4, residual=True,
     )
     eq = sharded.encode_query(queries)
-    i_s, i_i = sharded.top_k(eq, K, scan="indexed")
-    c_s, c_i = sharded.top_k(eq, K, scan="compact")
-    np.testing.assert_allclose(i_s, c_s, rtol=1e-5, atol=1e-4)
-    for row in i_i:
-        assert len(set(row.tolist())) == len(row)
+    sv, ids = sharded.top_k(eq, K)
+    _sharded_reference(sharded, queries, eq, sv, ids)
+    with pytest.raises(ArgumentsError, match="ROADMAP"):
+        sharded.top_k(eq, K, scan="indexed")

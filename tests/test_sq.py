@@ -1,4 +1,4 @@
-"""SQ u8 oracle-property tests — the TPU port of the reference test strategy
+"""SQ u8 oracle-property tests — the JAX port of the reference test strategy
 (quantization/tests/test_simple.rs): seeded random data, quantized score within
 ``dim * 0.1`` of the exact f32 score, for every (query, point) pair, across
 dot/l1/l2 x {plain, inverted}, plus score_internal, quantile edge cases, the
@@ -179,10 +179,11 @@ def test_sq_top_k(rng):
 
 
 def test_sq_l1_blocked_topk_matches_unblocked(rng, monkeypatch):
-    """The corpus-blocked L1 search path (top_k_device blocks the [Q, N]
-    score matrix) must match the flat score+top-k exactly; block size is
-    shrunk so a small corpus crosses several block (and tail) boundaries."""
-    import quantization_tpu.models.sq as sq_model
+    """The corpus-blocked search path (top_k_device blocks the [Q, N]
+    score matrix past ops.topk.BLOCK_ROWS) must match the flat
+    score+top-k exactly; block size is shrunk so a small corpus crosses
+    several block (and tail) boundaries."""
+    import quantization_tpu.ops.topk as topk_ops
 
     n, dim, q, k = 333, 40, 3, 7
     data = rng.random((n, dim), dtype=np.float32)
@@ -192,10 +193,10 @@ def test_sq_l1_blocked_topk_matches_unblocked(rng, monkeypatch):
     eq = enc.encode_query(queries)
     s_ref, i_ref = enc.top_k(eq, k)
 
-    monkeypatch.setattr(sq_model, "L1_BLOCK_ROWS", 100)
+    monkeypatch.setattr(topk_ops, "BLOCK_ROWS", 100)
     s_got, i_got = enc.top_k(eq, k)
     np.testing.assert_allclose(s_got, s_ref, rtol=1e-5, atol=1e-4)
     # ties possible on random u8 L1 scores; assert the score multiset only
-    monkeypatch.setattr(sq_model, "L1_BLOCK_ROWS", 64)  # k > some tail size
+    monkeypatch.setattr(topk_ops, "BLOCK_ROWS", 64)  # k > some tail size
     s_got2, _ = enc.top_k(eq, k)
     np.testing.assert_allclose(s_got2, s_ref, rtol=1e-5, atol=1e-4)
